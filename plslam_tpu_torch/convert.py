@@ -1,0 +1,68 @@
+"""State carried across from the JAX package, as numpy arrays.
+
+There are no learned weights.  What crosses over is the camera, the
+feature sets and the tracking state (``VOState``); the descriptor tables
+are re-derived by the same numpy code in ``ops/orb.py``, ``ops/lbd.py``
+and ``ops/image.py``.  Inputs are numpy arrays, dicts of them, or
+NamedTuples of them (e.g. ``jax.tree.map(np.asarray, state)`` on the JAX
+side); this module never imports jax.  uint32 descriptor words become
+int32 by a bit-preserving view, keeping the LSB-first bit order.
+"""
+
+from __future__ import annotations
+
+from collections.abc import Mapping
+
+import numpy as np
+import torch
+
+from .core.camera import StereoCamera
+from .frontend.features import LineSet, PointSet, StereoFeatures
+from .vo import VOState
+
+
+def _fields(obj) -> dict:
+    if isinstance(obj, Mapping):
+        return dict(obj)
+    if hasattr(obj, "_asdict"):
+        return obj._asdict()
+    raise TypeError(f"expected a mapping or NamedTuple, got {type(obj).__name__}")
+
+
+def tensor_from_numpy(a, device) -> torch.Tensor:
+    """numpy -> tensor on ``device``; uint32 words are viewed as int32."""
+    a = np.asarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    return torch.from_numpy(np.array(a, copy=True, order="C")).to(device)
+
+
+def camera_from_numpy(cam) -> StereoCamera:
+    """``StereoCamera`` from fx, fy, cx, cy, b (scalars or 0-d arrays),
+    width and height."""
+    f = _fields(cam)
+    return StereoCamera.create(*(float(np.asarray(f[k])) for k in
+                                 ("fx", "fy", "cx", "cy", "b")),
+                               width=int(f.get("width", 752)),
+                               height=int(f.get("height", 480)))
+
+
+def _named(cls, obj, device):
+    f = _fields(obj)
+    return cls(**{k: tensor_from_numpy(f[k], device) for k in cls._fields})
+
+
+def stereo_features_from_numpy(feats, device) -> StereoFeatures:
+    """``StereoFeatures`` from {"points": {...}, "lines": {...}}."""
+    f = _fields(feats)
+    return StereoFeatures(points=_named(PointSet, f["points"], device),
+                          lines=_named(LineSet, f["lines"], device))
+
+
+def vo_state_from_numpy(state, device) -> VOState:
+    """``VOState`` with every field on ``device``; fast_th as f32."""
+    f = _fields(state)
+    out = {k: tensor_from_numpy(f[k], device) for k in VOState._fields
+           if k != "features"}
+    out["fast_th"] = out["fast_th"].to(torch.float32)
+    return VOState(features=stereo_features_from_numpy(f["features"], device), **out)

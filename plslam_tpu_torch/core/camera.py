@@ -1,0 +1,57 @@
+"""Rectified pinhole stereo camera (``plslam_tpu.core.camera``).
+
+The intrinsics are Python floats rounded to float32, so that scalar
+arithmetic with float32 tensors uses exactly the JAX package's f32
+constants and no per-frame host-to-device copy is needed.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+
+def _f32(v) -> float:
+    return float(np.float32(v))
+
+
+class StereoCamera(NamedTuple):
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+    b: float  # baseline in meters
+    width: int = 752
+    height: int = 480
+
+    @classmethod
+    def create(cls, fx, fy, cx, cy, b, width=752, height=480) -> "StereoCamera":
+        return cls(_f32(fx), _f32(fy), _f32(cx), _f32(cy), _f32(b),
+                   int(width), int(height))
+
+    @property
+    def plucker_K(self) -> tuple:
+        """K_L = [[fy, 0, 0], [0, fx, 0], [-fy*cx, -fx*cy, fx*fy]]
+        (pinholeStereoCamera.cpp:123-125), entries rounded to f32."""
+        fx, fy, cx, cy = self.fx, self.fy, self.cx, self.cy
+        return ((fy, 0.0, 0.0), (0.0, fx, 0.0),
+                (_f32(-fy * cx), _f32(-fx * cy), _f32(fx * fy)))
+
+    def project(self, P: torch.Tensor) -> torch.Tensor:
+        return torch.stack([self.cx + self.fx * P[..., 0] / P[..., 2],
+                            self.cy + self.fy * P[..., 1] / P[..., 2]], dim=-1)
+
+    def back_project(self, uv: torch.Tensor, disp: torch.Tensor) -> torch.Tensor:
+        """Pixel + disparity -> 3D point, depth = b*fx/disp."""
+        # full_like: `scalar / tensor` is reciprocal-then-multiply in torch
+        depth = torch.full_like(disp, _f32(self.b * self.fx)) / disp
+        return torch.stack([depth * (uv[..., 0] - self.cx) / self.fx,
+                            depth * (uv[..., 1] - self.cy) / self.fy,
+                            depth], dim=-1)
+
+    def back_project_unit(self, uv: torch.Tensor) -> torch.Tensor:
+        return torch.stack([(uv[..., 0] - self.cx) / self.fx,
+                            (uv[..., 1] - self.cy) / self.fy,
+                            torch.ones_like(uv[..., 0])], dim=-1)

@@ -1,0 +1,122 @@
+"""Build and load the port's CUDA kernels (``csrc/*.cu``).
+
+All kernels compile with nvcc into one shared library with a plain C
+interface, loaded with ctypes; no PyTorch headers, so a build takes
+seconds.  The library goes to ``plslam_tpu_torch/_build/`` under a name
+that hashes the sources and flags, so an edited source rebuilds.  The
+build happens on first use, never at import: the CPU tests import every
+module on machines without nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parent.parent
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry points: name -> argument types; each returns a cudaError_t
+SIGNATURES = {
+    "plslam_gather_patches": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "plslam_fast_score_nms": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "plslam_hamming": (_P, _P, _P, _I, _I, _P),
+}
+
+
+class KernelBuild:
+    """The loaded library, its path, build seconds and nvcc's log."""
+
+    def __init__(self, lib: ctypes.CDLL, path: Path, seconds: float, log: str):
+        self.lib, self.path, self.seconds, self.log = lib, path, seconds, log
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def _sources() -> list[Path]:
+    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources in {CSRC_DIR}")
+    return srcs
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> KernelBuild:
+    """Compile (if needed) and load the kernel library."""
+    srcs = _sources()
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    path = BUILD_DIR / f"libplslam_kernels_{h.hexdigest()[:16]}.so"
+    log_path = path.with_suffix(".log")
+    t0 = time.perf_counter()
+    if not path.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+        os.close(fd)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            os.unlink(tmp)
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        log_path.write_text(proc.stdout + proc.stderr)
+        os.replace(tmp, path)
+    seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(path))
+    for name, argtypes in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+    lib.plslam_error_string.argtypes = [ctypes.c_int]
+    lib.plslam_error_string.restype = ctypes.c_char_p
+    log = log_path.read_text() if log_path.exists() else ""
+    return KernelBuild(lib, path, seconds, log)
+
+
+def check(err: int, what: str) -> None:
+    """Raise if a launch returned a CUDA error."""
+    if err != 0:
+        msg = load().lib.plslam_error_string(err).decode()
+        raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def require_cuda(what: str, *tensors: torch.Tensor) -> None:
+    """Every tensor on the same CUDA device and contiguous."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(f"{what}: tensors must share one CUDA device, got "
+                             f"{[str(x.device) for x in tensors]}")
+        if not t.is_contiguous():
+            raise ValueError(f"{what}: tensors must be contiguous")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
