@@ -8,13 +8,20 @@ Phases, each reported on its own lines:
   2. build: compiles the CUDA kernels from ``plslam_tpu_torch/csrc``;
   3. kernels: each kernel at the VO path's shapes against its plain
      PyTorch version on the card (bit-exact), with CUDA-event timings;
-  4. main path: ``VisualOdometry`` at the bench configuration (752x480,
+  4. VO path: ``VisualOdometry`` at the bench configuration (752x480,
      1200 points, 256 line slots) on the synthetic scene; every frame must
      track, ATE must stay under the floor, every kernel must have launched;
-  5. the kernel summary as one JSON line, then the result as the last line.
+  5. SLAM path: ``PLSLAM`` at bench_slam.py's configuration (tracking, the
+     mapping worker thread, deferred local BA, chunked GBA at finish);
+     every frame good, >= 8 keyframes, a local BA written back, finite GBA
+     poses, keyframe ATE under the floor, the Hamming kernel launched from
+     the mapping thread;
+  6. local BA: LM iterations/s of ``lm_rounds`` (f32, K=8, P=512, L=64);
+  7. the kernel summary as one JSON line, then the result as the last line.
 Any failure raises and exits non-zero.
 """
 
+import functools
 import json
 import subprocess
 import sys
@@ -30,6 +37,18 @@ ATE_FLOOR = max(2.0 * JAX_CPU_ATE, 0.01)
 
 N_WARMUP = 3
 N_FRAMES = 20
+
+# Keyframe ATE (m, Umeyama-aligned, keyframes matched to ground truth by
+# timestamp) of the JAX package's PLSLAM on the SLAM phase's 20 frames,
+# run on CPU (command in PERF.md); the port must stay within 2x of it.
+JAX_CPU_SLAM_ATE = 0.013965862188961113
+SLAM_ATE_FLOOR = max(2.0 * JAX_CPU_SLAM_ATE, 0.01)
+SLAM_WARMUP = 4
+SLAM_FRAMES = 16
+LBA_REPS = 5
+LM_ITERS = 10
+LM_REPS = 5
+MAPPER_THREAD = "plslam-mapper"
 TIMING_REPS = 25
 TIMING_WARMUP = 3
 
@@ -117,24 +136,39 @@ def phase_kernels(dev, levels, scene_imgs, card):
                        replaces="plslam_tpu/ops/pallas_fast.py:82",
                        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms))
 
-    # Hamming: stereo + f2f, points 1200x1200 and lines 256x256 (2 each/frame)
+    # Hamming: stereo + f2f, points 1200x1200 and lines 256x256 (2 each per
+    # VO frame); Map2KF against a 2048-candidate local map (SLAM path,
+    # timed apart)
     errs, ms, plain_ms = [], 0.0, 0.0
-    for n in (1200, 256):
-        d1 = torch.randint(-2**31, 2**31, (n, 8), generator=gen, dtype=torch.int64)
-        d2 = torch.randint(-2**31, 2**31, (n, 8), generator=gen, dtype=torch.int64)
+    for n1, n2 in ((1200, 1200), (256, 256), (2048, 1200)):
+        d1 = torch.randint(-2**31, 2**31, (n1, 8), generator=gen, dtype=torch.int64)
+        d2 = torch.randint(-2**31, 2**31, (n2, 8), generator=gen, dtype=torch.int64)
         d1, d2 = d1.to(torch.int32).to(dev), d2.to(torch.int32).to(dev)
         got = cuda_hamming.hamming_distance_matrix_cuda(d1, d2)
         want = cuda_hamming.hamming_plain(d1, d2)
-        errs.append(check_equal(f"hamming {n}", got, want))
+        errs.append(check_equal(f"hamming {n1}x{n2}", got, want))
         t = median_ms(lambda: cuda_hamming.hamming_distance_matrix_cuda(d1, d2))
         tp = median_ms(lambda: cuda_hamming.hamming_plain(d1, d2))
-        ms, plain_ms = ms + 2 * t, plain_ms + 2 * tp
-        say(f"kernel hamming {n}x{n}: exact; {t:.4f} ms vs plain {tp:.4f} ms on {card}")
+        if n1 == n2:
+            ms, plain_ms = ms + 2 * t, plain_ms + 2 * tp
+        say(f"kernel hamming {n1}x{n2}: exact; {t:.4f} ms vs plain {tp:.4f} ms on {card}")
     report.append(dict(name="hamming_distance_matrix_cuda", route="cuda",
                        source="plslam_tpu_torch/csrc/hamming.cu",
                        replaces="plslam_tpu/ops/pallas_hamming.py:45",
                        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms))
     return report
+
+
+KERNEL_WRAPPERS = ("gather_patches_batch", "fast_score_nms_batch",
+                   "hamming_distance_matrix_cuda")
+
+
+def _wrappers():
+    from plslam_tpu_torch.ops import cuda_fast, cuda_hamming, cuda_patches
+
+    return {"gather_patches_batch": cuda_patches.gather_patches_batch,
+            "fast_score_nms_batch": cuda_fast.fast_score_nms_batch,
+            "hamming_distance_matrix_cuda": cuda_hamming.hamming_distance_matrix_cuda}
 
 
 def phase_main_path(dev, scene, poses, frames):
@@ -143,12 +177,9 @@ def phase_main_path(dev, scene, poses, frames):
     from plslam_tpu_torch.frontend.frame import FrontendConfig
     from plslam_tpu_torch.frontend.tracker import TrackerConfig
     from plslam_tpu_torch.io import ate_rmse
-    from plslam_tpu_torch.ops import cuda_fast, cuda_hamming, cuda_patches
     from plslam_tpu_torch.vo import VisualOdometry
 
-    wrappers = {"gather_patches_batch": cuda_patches.gather_patches_batch,
-                "fast_score_nms_batch": cuda_fast.fast_score_nms_batch,
-                "hamming_distance_matrix_cuda": cuda_hamming.hamming_distance_matrix_cuda}
+    wrappers = _wrappers()
     cam = StereoCamera.create(scene.fx, scene.fy, scene.cx, scene.cy, scene.b,
                               width=scene.width, height=scene.height)
     vo = VisualOdometry(cam, FrontendConfig(n_points=1200, n_lines=256),
@@ -199,6 +230,176 @@ def phase_main_path(dev, scene, poses, frames):
     return launches, fps, ate
 
 
+def phase_slam(dev, scene, smi):
+    """PLSLAM through the kernels at bench_slam.py's configuration."""
+    from plslam_tpu_torch.backend.mapping import MapConfig
+    from plslam_tpu_torch.config import PLSLAMConfig
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.io import ate_rmse, circular_trajectory
+    from plslam_tpu_torch.pipeline import PLSLAM
+
+    cam = StereoCamera.create(scene.fx, scene.fy, scene.cx, scene.cy, scene.b,
+                              width=scene.width, height=scene.height)
+    poses = circular_trajectory(SLAM_WARMUP + SLAM_FRAMES, step_t=0.05)
+    frames = [tuple(torch.from_numpy(x).to(dev) for x in scene.render_stereo(T, noise=1.0))
+              for T in poses]
+    torch.cuda.synchronize()
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    slam = PLSLAM(cam, PLSLAMConfig(orb_nfeatures=1200, lsd_nfeatures=256,
+                                    min_entropy_ratio=0.99),
+                  MapConfig(local_ba_kf=8, ba_points=2048, ba_lines=256, ba_pobs=8192,
+                            ba_lobs=2048), device=dev)
+    for i in range(SLAM_WARMUP):
+        slam.process(*frames[i], timestamp=0.05 * i)
+    slam.wait_until_idle()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(SLAM_WARMUP, SLAM_WARMUP + SLAM_FRAMES):
+        slam.process(*frames[i], timestamp=0.05 * i)
+    slam.wait_until_idle()
+    torch.cuda.synchronize()
+    fps = SLAM_FRAMES / (time.perf_counter() - t0)
+    n_kf = len(slam.mapper.map.keyframes)
+    n_lba = slam.mapper.n_local_ba_applied
+
+    # local BA of the final 8-keyframe window, solved and copied back
+    # (no write-back), host clock around a synchronized solve
+    lba_ms = []
+    with slam.mapper._map_lock:
+        for _ in range(LBA_REPS):
+            prob, meta = slam.mapper.build_local_ba()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out, _ = slam.mapper._solve_local(prob, meta)
+            out.cpu()
+            lba_ms.append(1e3 * (time.perf_counter() - t))
+    lba_shape = (int(prob.T_c_w.shape[0]), len(meta["pt_ids"]), len(meta["ls_ids"]),
+                 int(prob.p_valid.sum()), int(prob.l_valid.sum()))
+
+    t = time.perf_counter()
+    traj = slam.finish(run_gba=True)
+    torch.cuda.synchronize()
+    gba_ms = 1e3 * (time.perf_counter() - t)
+    by_thread = {k: fn.launches_by_thread() for k, fn in wrappers.items()}
+
+    good = [lg.good for lg in slam.logs]
+    est = np.stack([T[:3, 3] for T in traj])
+    gt = np.stack([poses[int(round(ts / 0.05))][:3, 3] for ts in slam.kf_timestamps])
+    ate = ate_rmse(est, gt, align=True)
+    mapper_hamming = by_thread["hamming_distance_matrix_cuda"].get(MAPPER_THREAD, 0)
+    say(f"slam: {fps:.3f} full-SLAM frames/s over {SLAM_FRAMES} frames; "
+        f"{sum(good)}/{len(good)} frames good; {n_kf} keyframes; "
+        f"{n_lba} local BAs written back")
+    say(f"slam: local BA median {float(np.median(lba_ms)):.3f} ms (min {min(lba_ms):.3f}, "
+        f"max {max(lba_ms):.3f}; {LBA_REPS} solves; K, points, lines, point obs, "
+        f"line obs = {lba_shape}); GBA (finish) {gba_ms:.3f} ms over {len(traj)} "
+        f"keyframes on {smi}")
+    say(f"slam: keyframe ATE {ate:.6f} m (aligned; floor {SLAM_ATE_FLOOR:.6f}, "
+        f"JAX CPU {JAX_CPU_SLAM_ATE:.6f})")
+    say(f"slam launches by thread: {by_thread}")
+    if slam._map_errors:
+        raise AssertionError(f"mapping thread raised: {slam._map_errors!r}")
+    if not all(good):
+        raise AssertionError(f"frames lost tracking: {good}")
+    if n_kf < 8:
+        raise AssertionError(f"only {n_kf} keyframes")
+    if n_lba < 1:
+        raise AssertionError("no local BA was written back")
+    if not np.isfinite(np.stack(traj)).all():
+        raise AssertionError("GBA poses are not finite")
+    if not ate <= SLAM_ATE_FLOOR:
+        raise AssertionError(f"keyframe ATE {ate} above floor {SLAM_ATE_FLOOR}")
+    if mapper_hamming <= 0:
+        raise AssertionError("the mapping thread never launched the Hamming kernel")
+    for k in KERNEL_WRAPPERS:
+        if sum(by_thread[k].values()) <= 0:
+            raise AssertionError(f"kernel {k} never launched on the SLAM path")
+    return by_thread, fps, ate
+
+
+def make_ba_problem_np(K=8, P=512, L=64, noise=0.0, pert=0.02, seed=11):
+    """numpy twin of tests/test_ba.make_problem (same draws, same order):
+    every camera sees every landmark, pose 0 fixed, perturbed start."""
+    rng = np.random.default_rng(seed)
+    poses_xi = np.concatenate([rng.uniform(-0.5, 0.5, (K, 2)), rng.uniform(-0.1, 0.1, (K, 1)),
+                               rng.uniform(-0.05, 0.05, (K, 3))], axis=1)
+    Pw = np.stack([rng.uniform(-3, 3, P), rng.uniform(-2, 2, P), rng.uniform(4, 10, P)], -1)
+    LA = np.stack([rng.uniform(-3, 3, L), rng.uniform(-2, 2, L), rng.uniform(4, 10, L)], -1)
+    LB = LA + np.stack([rng.uniform(-1.5, 1.5, L), rng.uniform(-1.5, 1.5, L),
+                        rng.uniform(-0.5, 0.5, L)], -1)
+    pert_xi = rng.normal(size=(K, 6)) * pert
+    pert_xi[0] = 0.0
+    pert_P = rng.normal(size=(P, 3)) * pert
+    pert_orth = rng.normal(size=(L, 4)) * pert * 0.5
+    noise_uv = rng.normal(size=(K * P, 2)) * noise
+    noise_s = rng.normal(size=(K * L, 2)) * noise
+    noise_e = rng.normal(size=(K * L, 2)) * noise
+    return dict(poses_xi=poses_xi, Pw=Pw, LA=LA, LB=LB, pert_xi=pert_xi, pert_P=pert_P,
+                pert_orth=pert_orth, noise_uv=noise_uv, noise_s=noise_s, noise_e=noise_e)
+
+
+def phase_local_ba(dev, smi):
+    """LM iterations/s of the local-BA solver (bench_slam.py's problem)."""
+    from plslam_tpu_torch.backend import ba
+    from plslam_tpu_torch.core import lie
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.core.plucker import plucker_from_two_points, plucker_to_orth
+
+    K, P, L = 8, 512, 64
+    d = {k: torch.from_numpy(v).to(dev) for k, v in make_ba_problem_np(K, P, L).items()}
+    cam = StereoCamera.create(435.2, 435.2, 367.4, 252.2, 0.110074)
+    T_c_w = lie.inv_se3(lie.exp_se3(d["poses_xi"]))
+    cp = torch.arange(K, device=dev).repeat_interleave(P)
+    lp = torch.arange(P, device=dev).repeat(K)
+    cl = torch.arange(K, device=dev).repeat_interleave(L)
+    ll = torch.arange(L, device=dev).repeat(K)
+    uv = cam.project(lie.transform_point(T_c_w[cp], d["Pw"][lp])) + d["noise_uv"]
+    sA = cam.project(lie.transform_point(T_c_w[cl], d["LA"][ll])) + d["noise_s"]
+    eB = cam.project(lie.transform_point(T_c_w[cl], d["LB"][ll])) + d["noise_e"]
+    Lw = plucker_from_two_points(d["LA"], d["LB"])
+    scale = torch.linalg.norm(Lw, dim=-1)
+    orth = plucker_to_orth(Lw / scale[:, None]) + d["pert_orth"]
+    f32 = torch.float32
+    ones = functools.partial(torch.ones, device=dev)
+    prob = ba.BAProblem(
+        T_c_w=(lie.exp_se3(d["pert_xi"]) @ T_c_w).to(f32),
+        pose_fixed=torch.arange(K, device=dev) == 0, pose_valid=ones(K, dtype=torch.bool),
+        points=(d["Pw"] + d["pert_P"]).to(f32), point_valid=ones(P, dtype=torch.bool),
+        lines_orth=orth.to(f32), lines_scale=scale.to(f32), line_valid=ones(L, dtype=torch.bool),
+        p_cam=cp, p_lm=lp, p_uv=uv.to(f32), p_sigma2=ones(K * P, dtype=f32),
+        p_valid=ones(K * P, dtype=torch.bool),
+        l_cam=cl, l_lm=ll, l_sobs=sA.to(f32), l_eobs=eB.to(f32),
+        l_sigma2=ones(K * L, dtype=f32), l_valid=ones(K * L, dtype=torch.bool))
+    cfg = ba.BAConfig()
+    cost0 = float(ba.total_cost(prob, cam, cfg, prob.p_valid, prob.l_valid))
+
+    def run():
+        return ba.lm_rounds(prob, cam, cfg, prob.p_valid, prob.l_valid, LM_ITERS)
+
+    res, cost, trips = run()  # warm-up
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(LM_REPS):
+        res, cost, trips = run()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end)
+    ips = LM_ITERS * LM_REPS / (ms / 1e3)
+    cost, trips = float(cost), int(trips)
+    say(f"local BA: {ips:.3f} LM iterations/s ({LM_ITERS} trips x {LM_REPS} reps, "
+        f"{ms / LM_REPS:.3f} ms per lm_rounds; f32 K={K} P={P} L={L}); cost "
+        f"{cost0:.6g} -> {cost:.6g}; {trips} trips before the early exit; on {smi}")
+    if not (np.isfinite(cost) and cost < 1e-3 * cost0):
+        raise AssertionError(f"LM did not converge: {cost0} -> {cost}")
+    if not torch.isfinite(res.T_c_w).all():
+        raise AssertionError("LM poses are not finite")
+    return ips
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -232,11 +433,17 @@ def main() -> int:
 
     report = phase_kernels(dev, levels, pair, smi)
     launches, fps, ate = phase_main_path(dev, scene, poses, frames)
+    slam_launches, slam_fps, slam_ate = phase_slam(dev, scene, smi)
+    lm_ips = phase_local_ba(dev, smi)
     for k in report:
-        k["launches"] = launches[k["name"]]
+        slam_k = slam_launches[k["name"]]
+        k["launches"] = launches[k["name"]] + sum(slam_k.values())
+        k["launches_by_path"] = {"vo": launches[k["name"]], "slam": slam_k}
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     say(f"main path: {fps:.3f} frames/s, ATE {ate:.6f} m on {smi}")
+    say(f"slam path: {slam_fps:.3f} frames/s, keyframe ATE {slam_ate:.6f} m; local BA "
+        f"{lm_ips:.3f} LM iterations/s on {smi}")
     say(json.dumps({"kernels": report}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -1,0 +1,1649 @@
+"""Keyframe map management, the MapHandler equivalent
+(``plslam_tpu.backend.mapping``; reference ``src/mapHandler.cpp``
+addKeyFrame :121, matchKF2KF :237/:368, matchMap2KF :697-921, formLocalMap
+:1005, local BA write-back and observation pruning :6154-6319,
+removeBadMapLandmarks :3732, removeRedundantKFs :3899-4047).
+
+The dynamic topology (landmarks, observation tables, covisibility) lives
+in host numpy as flat capacity-doubling tables, carried over from the JAX
+package nearly verbatim; descriptor words are int32 bit patterns.  The
+numeric steps run on ``device``: one association function per keyframe
+(KF2KF and Map2KF matching through the Hamming kernel, the chi^2 creation
+gates, the packed host copy of the features), the local BA, and the
+chunked global BA.  Each returns one buffer that comes to the host in one
+copy.
+
+Not ported here (ROADMAP queue 1): endpoint-line mapping
+(``plucker_lines=False``) and ``has_refinement``; both raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import functools
+import logging
+import threading
+from dataclasses import dataclass
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from ..core import lie
+from ..core.camera import StereoCamera
+from ..core.plucker import (normalize_plucker, orth_to_plucker, plucker_to_orth,
+                            transform_plucker)
+from ..frontend.features import LineSet, PointSet, StereoFeatures
+from ..ops import matching as M
+from ..convert import ba_problem_from_numpy
+from . import ba as ba_mod
+
+log = logging.getLogger("plslam")
+
+CHI2_GATE = 5.991  # mapHandler.cpp:489, :6131
+
+
+class LocalBAResult(NamedTuple):
+    """Host-side summary of one local-BA solve."""
+
+    T_c_w: np.ndarray
+    points: np.ndarray
+    p_active: np.ndarray
+    l_active: np.ndarray
+    cost: float
+
+
+@dataclass
+class MapConfig:
+    min_lm_obs: int = 5           # slamConfig min_lm_obs
+    cull_age: int = 10            # removeBadMapLandmarks :3741
+    min_lm_cov_graph: int = 75    # formLocalMap :1052
+    min_kf_local_map: int = 3     # formLocalMap :1118
+    max_kf_epip_p: float = 1.0    # matchMap2KF accept gate :778
+    max_kf_epip_l: float = 1.0    # matchMap2KFLines accept gate :894
+    match_window: float = 40.0    # projected-grid window (f2f cells)
+    nnr: float = 0.9
+    line_sim_th: float = 0.75     # direction cosine filter (matching.cpp:221)
+    use_lines: bool = True
+    plucker_lines: bool = True
+    min_pt_matches: int = 10      # windowed->global fallback gate :277-281
+    min_ls_matches: int = 6       # SlamConfig::minLineMatches (:875-878)
+    has_refinement: bool = False  # SlamConfig::hasRefinement :937-977
+    kf_inlier_ratio: float = 30.0
+    min_features: int = 10
+    desc_refresh_kfs: int = 8     # re-elect landmark descriptors every N KFs
+    cull_kf_every: int = 0        # removeRedundantKFs every N KFs (0 = off)
+    max_common_fts_kf: float = 0.9
+    local_ba_kf: int = 16         # padded local-KF capacity of the BA
+    ba_points: int = 1024         # padded BA capacities (per GBA chunk)
+    ba_lines: int = 256
+    ba_pobs: int = 4096
+    ba_lobs: int = 1024
+    # divergence guards: a BA whose largest pose translation change
+    # exceeds this (m) is discarded with a warning; 0 disables
+    lba_max_jump: float = 1.0
+    gba_max_jump: float = 10.0
+
+
+def _pack_feats(feats: StereoFeatures) -> torch.Tensor:
+    """A feature set as one dense f32 buffer (descriptors bit-cast), so the
+    host copy is one transfer."""
+    p, l = feats.points, feats.lines
+    f32 = torch.float32
+    fp = torch.cat([p.uv, p.P, p.sigma2[:, None], p.valid.to(f32)[:, None]], dim=1)
+    fl = torch.cat([l.sp, l.ep, l.sP, l.eP, l.NDc, l.sigma2[:, None],
+                    l.valid.to(f32)[:, None]], dim=1)
+    desc = torch.cat([p.desc, l.desc], dim=0).contiguous().view(f32)
+    return torch.cat([fp.reshape(-1), fl.reshape(-1), desc.reshape(-1)])
+
+
+def _upload(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+class KeyframeRecord:
+    """Host copy of one keyframe's features (keyFrame.cpp:31-79).  The
+    device feature set is kept in ``dev`` so association reads features
+    that are already on the device."""
+
+    def __init__(self, kf_id: int, pose: np.ndarray, feats: StereoFeatures,
+                 packed: np.ndarray | None = None):
+        self.id = kf_id
+        self.active = True
+        self.T_w_k = pose.astype(np.float64)        # camera -> world
+        self.dev = feats
+        self.device = feats.points.uv.device
+        n_pt = feats.points.uv.shape[0]
+        n_ls = feats.lines.sp.shape[0]
+        buf = packed if packed is not None else _pack_feats(feats).cpu().numpy()
+        fp = buf[: n_pt * 7].reshape(n_pt, 7)
+        fl = buf[n_pt * 7: n_pt * 7 + n_ls * 18].reshape(n_ls, 18)
+        desc = buf[n_pt * 7 + n_ls * 18:].reshape(n_pt + n_ls, 8).view(np.int32)
+        self.pt_uv = fp[:, 0:2]
+        self.pt_P = fp[:, 2:5]
+        self.pt_sigma2 = fp[:, 5]
+        self.pt_valid = fp[:, 6] > 0.5
+        self.pt_desc = desc[:n_pt]
+        self.pt_lm = np.full(n_pt, -1, np.int64)
+        self.ls_sp = fl[:, 0:2]
+        self.ls_ep = fl[:, 2:4]
+        self.ls_sP = fl[:, 4:7]
+        self.ls_eP = fl[:, 7:10]
+        self.ls_NDc = fl[:, 10:16]
+        self.ls_sigma2 = fl[:, 16]
+        self.ls_valid = fl[:, 17] > 0.5
+        self.ls_desc = desc[n_pt:]
+        self.ls_lm = np.full(n_ls, -1, np.int64)
+
+    def dev_feats(self) -> StereoFeatures:
+        """Device features; rebuilt (once) from the host copy after
+        ``MapHandler._trim_device_cache`` dropped them."""
+        if self.dev is None:
+            n, m = len(self.pt_uv), len(self.ls_sp)
+            up = functools.partial(_upload, device=self.device)
+            z = functools.partial(torch.zeros, device=self.device)
+            pts = PointSet(uv=up(self.pt_uv), disp=z(n), P=up(self.pt_P),
+                           desc=up(self.pt_desc), sigma2=up(self.pt_sigma2),
+                           valid=up(self.pt_valid))
+            ls = LineSet(sp=up(self.ls_sp), ep=up(self.ls_ep), sdisp=z(m), edisp=z(m),
+                         sP=up(self.ls_sP), eP=up(self.ls_eP), le=z((m, 3)), angle=z(m),
+                         NDc=up(self.ls_NDc), desc=up(self.ls_desc),
+                         sigma2=up(self.ls_sigma2), valid=up(self.ls_valid))
+            self.dev = StereoFeatures(points=pts, lines=ls)
+        return self.dev
+
+
+def _grow(buf: np.ndarray, need: int) -> np.ndarray:
+    """Double a capacity buffer until it holds ``need`` rows."""
+    cap = len(buf)
+    if need <= cap:
+        return buf
+    cap = max(cap, 1)
+    while cap < need:
+        cap *= 2
+    out = np.zeros((cap,) + buf.shape[1:], buf.dtype)
+    out[: len(buf)] = buf
+    return out
+
+
+class _ObsTable:
+    """Flat observation store: (lm, kf, feat) rows with tombstoned removal
+    — the array-ization of the reference's per-landmark obs/kf_obs lists
+    (mapFeatures.h:60-66, :105-112).
+
+    Per-landmark row lookup goes through a LAZY sorted index (live rows
+    argsorted by landmark, rebuilt on first query after any mutation), so
+    every maintenance path is bulk numpy instead of per-row Python list
+    surgery — the flat-per-KF host cost fix of VERDICT r3 weak #4."""
+
+    def __init__(self, cap: int = 1024):
+        self.lm = np.zeros(cap, np.int64)
+        self.kf = np.zeros(cap, np.int64)
+        self.fi = np.zeros(cap, np.int64)
+        self.valid = np.zeros(cap, bool)
+        self.n = 0
+        self._order = None   # live rows sorted (stable) by landmark
+        self._olm = None     # lm of those rows (sorted)
+
+    def invalidate(self):
+        self._order = None
+
+    def _idx_insert(self, rows: np.ndarray):
+        """Merge new live rows into the sorted index (one O(total) memcpy
+        via np.insert instead of a full argsort rebuild — the argsort was
+        the dominant per-KF host cost at 1000-KF scale)."""
+        if self._order is None or not len(rows):
+            return
+        tlm = self.lm[rows]
+        t_order = np.argsort(tlm, kind="stable")
+        rows, tlm = rows[t_order], tlm[t_order]
+        # 'right': new rows append AFTER existing equals (insertion order)
+        pos = np.searchsorted(self._olm, tlm, "right")
+        self._order = np.insert(self._order, pos, rows)
+        self._olm = np.insert(self._olm, pos, tlm)
+
+    def _idx_remove(self, rows: np.ndarray):
+        if self._order is None or not len(rows):
+            return
+        rm = np.zeros(self.n, bool)
+        rm[rows] = True
+        keep = ~rm[self._order]
+        self._order = self._order[keep]
+        self._olm = self._olm[keep]
+
+    def _index(self):
+        if self._order is None:
+            live = np.where(self.valid[: self.n])[0]
+            self._order = live[np.argsort(self.lm[live], kind="stable")]
+            self._olm = self.lm[self._order]
+        return self._order, self._olm
+
+    def group_slices(self, lms):
+        """(order, lo, hi): each landmark's live rows are
+        order[lo[i]:hi[i]], in insertion order."""
+        order, olm = self._index()
+        lms = np.asarray(lms, np.int64)
+        return order, np.searchsorted(olm, lms, "left"), \
+            np.searchsorted(olm, lms, "right")
+
+    def rows_of(self, lms) -> np.ndarray:
+        """Concatenated live rows of the given landmarks (insertion order
+        within each landmark)."""
+        order, lo, hi = self.group_slices(lms)
+        lens = hi - lo
+        total = int(lens.sum())
+        if not total:
+            return np.zeros(0, np.int64)
+        idx = (np.arange(total)
+               - np.repeat(np.cumsum(lens) - lens, lens)
+               + np.repeat(lo, lens))
+        return order[idx]
+
+    def append(self, lms: np.ndarray, kf_id: int, fis: np.ndarray) -> np.ndarray:
+        k = len(lms)
+        need = self.n + k
+        if need > len(self.lm):
+            self.lm = _grow(self.lm, need)
+            self.kf = _grow(self.kf, need)
+            self.fi = _grow(self.fi, need)
+            self.valid = _grow(self.valid, need)
+        rows = np.arange(self.n, self.n + k)
+        self.lm[rows] = lms
+        self.kf[rows] = kf_id
+        self.fi[rows] = fis
+        self.valid[rows] = True
+        self.n = need
+        self._idx_insert(rows)
+        return rows
+
+
+class SlamMap:
+    """Fixed-layout landmark store + flat observation tables + covisibility.
+
+    All landmark state lives in capacity-doubling numpy buffers exposed as
+    slice views (``pt_w`` etc.), so consumers index and assign as if they
+    were plain arrays while creation is O(1) amortized.
+    """
+
+    _PT_CAP0 = 4096
+    _LS_CAP0 = 1024
+
+    def __init__(self, cfg: MapConfig):
+        self.cfg = cfg
+        self.keyframes: list[KeyframeRecord] = []
+        # covis lives in a capacity-doubling square buffer exposed as a
+        # (K, K) view — per-KF expandGraphs is O(1) amortized instead of
+        # an O(K^2) reallocation every keyframe
+        self._covis_buf = np.zeros((16, 16), np.int32)
+        # point landmarks
+        self.n_pt = 0
+        self._pt_w = np.zeros((self._PT_CAP0, 3))
+        self._pt_desc = np.zeros((self._PT_CAP0, 8), np.int32)
+        self._pt_valid = np.zeros(self._PT_CAP0, bool)
+        self._pt_first_kf = np.zeros(self._PT_CAP0, np.int64)
+        self._pt_last_kf = np.zeros(self._PT_CAP0, np.int64)
+        self._pt_nobs = np.zeros(self._PT_CAP0, np.int64)
+        self.pobs = _ObsTable()
+        # line landmarks (world Pluecker, normalized ||d||=1) + world
+        # endpoints (the endpoint-mode state, line3D of the reference's
+        # non-Pluecker branch :591-692; kept in both modes)
+        self.n_ls = 0
+        self._ls_w = np.zeros((self._LS_CAP0, 6))
+        self._ls_epw = np.zeros((self._LS_CAP0, 2, 3))
+        self._ls_desc = np.zeros((self._LS_CAP0, 8), np.int32)
+        self._ls_valid = np.zeros(self._LS_CAP0, bool)
+        self._ls_first_kf = np.zeros(self._LS_CAP0, np.int64)
+        self._ls_last_kf = np.zeros(self._LS_CAP0, np.int64)
+        self._ls_nobs = np.zeros(self._LS_CAP0, np.int64)
+        self.lobs = _ObsTable(256)
+
+    # -- array views (live prefix of the capacity buffers) -----------------
+
+    def _view(name):  # noqa: N805 — descriptor factory
+        buf, cnt = "_" + name.split("__")[0], name.split("__")[1]
+
+        def get(self):
+            return getattr(self, buf)[: getattr(self, cnt)]
+
+        def set_(self, value):
+            getattr(self, buf)[: getattr(self, cnt)] = value
+
+        return property(get, set_)
+
+    pt_w = _view("pt_w__n_pt")
+    pt_desc = _view("pt_desc__n_pt")
+    pt_valid = _view("pt_valid__n_pt")
+    pt_first_kf = _view("pt_first_kf__n_pt")
+    pt_last_kf = _view("pt_last_kf__n_pt")
+    pt_nobs = _view("pt_nobs__n_pt")
+    ls_w = _view("ls_w__n_ls")
+    ls_epw = _view("ls_epw__n_ls")
+    ls_desc = _view("ls_desc__n_ls")
+    ls_valid = _view("ls_valid__n_ls")
+    ls_first_kf = _view("ls_first_kf__n_ls")
+    ls_last_kf = _view("ls_last_kf__n_ls")
+    ls_nobs = _view("ls_nobs__n_ls")
+    del _view
+
+    # -- landmark creation (batched) ---------------------------------------
+
+    def new_points(self, Pw: np.ndarray, desc: np.ndarray, kf_id: int,
+                   fis: np.ndarray) -> np.ndarray:
+        """Create N point landmarks seeded by one observation each.
+        Returns the new landmark ids."""
+        k = len(Pw)
+        if k == 0:
+            return np.zeros(0, np.int64)
+        need = self.n_pt + k
+        self._pt_w = _grow(self._pt_w, need)
+        self._pt_desc = _grow(self._pt_desc, need)
+        self._pt_valid = _grow(self._pt_valid, need)
+        self._pt_first_kf = _grow(self._pt_first_kf, need)
+        self._pt_last_kf = _grow(self._pt_last_kf, need)
+        self._pt_nobs = _grow(self._pt_nobs, need)
+        ids = np.arange(self.n_pt, need)
+        self._pt_w[ids] = Pw
+        self._pt_desc[ids] = desc
+        self._pt_valid[ids] = True
+        self._pt_first_kf[ids] = kf_id
+        self._pt_last_kf[ids] = kf_id
+        self._pt_nobs[ids] = 1
+        self.n_pt = need
+        self.pobs.append(ids, kf_id, np.asarray(fis))
+        return ids
+
+    def new_lines(self, Lw: np.ndarray, desc: np.ndarray, kf_id: int,
+                  fis: np.ndarray, ep_w: np.ndarray) -> np.ndarray:
+        k = len(Lw)
+        if k == 0:
+            return np.zeros(0, np.int64)
+        need = self.n_ls + k
+        self._ls_w = _grow(self._ls_w, need)
+        self._ls_epw = _grow(self._ls_epw, need)
+        self._ls_desc = _grow(self._ls_desc, need)
+        self._ls_valid = _grow(self._ls_valid, need)
+        self._ls_first_kf = _grow(self._ls_first_kf, need)
+        self._ls_last_kf = _grow(self._ls_last_kf, need)
+        self._ls_nobs = _grow(self._ls_nobs, need)
+        ids = np.arange(self.n_ls, need)
+        self._ls_w[ids] = Lw
+        self._ls_epw[ids] = ep_w
+        self._ls_desc[ids] = desc
+        self._ls_valid[ids] = True
+        self._ls_first_kf[ids] = kf_id
+        self._ls_last_kf[ids] = kf_id
+        self._ls_nobs[ids] = 1
+        self.n_ls = need
+        self.lobs.append(ids, kf_id, np.asarray(fis))
+        return ids
+
+    # -- observations + covisibility ---------------------------------------
+
+    def _covis_delta(self, kf_id: int, observer_kfs: np.ndarray, delta: int):
+        """full_graph[kf_id][obs] += delta for every observer (the
+        per-shared-feature increments of mapHandler.cpp:349-350, :788-789,
+        :912-913 / decrements of :2251-2252)."""
+        obs = observer_kfs[observer_kfs != kf_id]
+        if not len(obs):
+            return
+        counts = np.bincount(obs, minlength=self.covis.shape[0])
+        counts = (counts * delta).astype(np.int32)
+        self.covis[kf_id, :] += counts
+        self.covis[:, kf_id] += counts
+
+    def _covis_pairs(self, a: np.ndarray, b: np.ndarray, delta: int):
+        """covis[a_i, b_i] += delta and covis[b_i, a_i] += delta for every
+        pair, compacted to unique pairs (pairs with a == b dropped,
+        matching _covis_delta's self-exclusion).  No K^2 temporaries."""
+        m = a != b
+        a, b = a[m], b[m]
+        if not len(a):
+            return
+        K = self.covis.shape[0]
+        uk, cnt = np.unique(a.astype(np.int64) * K + b, return_counts=True)
+        ai = (uk // K).astype(np.int64)
+        bi = (uk % K).astype(np.int64)
+        d = (cnt * delta).astype(np.int32)
+        cv = self.covis
+        np.add.at(cv, (ai, bi), d)
+        np.add.at(cv, (bi, ai), d)
+
+    def add_point_obs(self, lms: np.ndarray, kf_id: int, fis: np.ndarray):
+        """Add one observation per (landmark, feature) pair from kf_id,
+        bumping covis against EVERY keyframe already observing each
+        landmark (mapHandler.cpp:322-351)."""
+        lms = np.asarray(lms, np.int64)
+        fis = np.asarray(fis, np.int64)
+        if not len(lms):
+            return
+        prior = self.pobs.rows_of(lms)
+        if len(prior):
+            self._covis_delta(kf_id, self.pobs.kf[prior], +1)
+        self.pobs.append(lms, kf_id, fis)
+        self._pt_last_kf[lms] = kf_id
+        # np.add.at: fancy-index += collapses duplicate landmark ids (a
+        # loop-closure merge can point two features of one KF at the same
+        # landmark), desyncing nobs from the live observation rows
+        np.add.at(self._pt_nobs, lms, 1)
+
+    def add_line_obs(self, lms: np.ndarray, kf_id: int, fis: np.ndarray):
+        lms = np.asarray(lms, np.int64)
+        fis = np.asarray(fis, np.int64)
+        if not len(lms):
+            return
+        prior = self.lobs.rows_of(lms)
+        if len(prior):
+            self._covis_delta(kf_id, self.lobs.kf[prior], +1)
+        self.lobs.append(lms, kf_id, fis)
+        self._ls_last_kf[lms] = kf_id
+        np.add.at(self._ls_nobs, lms, 1)
+
+    def _remove_obs_rows(self, table: _ObsTable, nobs: np.ndarray,
+                         rows: np.ndarray):
+        """Tombstone observation rows, decrementing covis between each
+        removed observer and the other observers of its landmark (the
+        pruning decrements of mapHandler.cpp:2251-2252, :6154-6293).
+        Fully batched: the sequential per-row loop's net effect is one
+        decrement per unordered live-row pair {removed, other} of the same
+        landmark (pairs of two removed rows count once), assembled here as
+        bulk pair arrays + one bincount."""
+        rows = np.unique(np.asarray(rows, np.int64))
+        if len(rows):
+            rows = rows[table.valid[rows]]
+        if not len(rows):
+            return
+        lms = table.lm[rows]
+        order, lo, hi = table.group_slices(lms)  # per removed row's lm
+        rep = hi - lo                            # full obs count of its lm
+        total = int(rep.sum())
+        # cartesian product: each removed row x all live rows of its lm
+        block = np.cumsum(rep) - rep
+        j = np.arange(total) - np.repeat(block, rep)
+        left = np.repeat(rows, rep)
+        right = order[np.repeat(lo, rep) + j]
+        removed = np.zeros(table.n, bool)
+        removed[rows] = True
+        keepm = left != right
+        # both-removed pairs are generated from each side; keep one
+        keepm &= ~(removed[right] & (right < left))
+        self._covis_pairs(table.kf[left[keepm]], table.kf[right[keepm]], -1)
+        np.add.at(nobs, lms, -1)
+        table.valid[rows] = False
+        table._idx_remove(rows)
+
+    def remove_point_obs_rows(self, rows: np.ndarray):
+        self._remove_obs_rows(self.pobs, self._pt_nobs, rows)
+
+    def remove_line_obs_rows(self, rows: np.ndarray):
+        self._remove_obs_rows(self.lobs, self._ls_nobs, rows)
+
+    def point_obs(self, lm: int):
+        """Live (kf, feat) observation arrays of one point landmark."""
+        rows = self.pobs.rows_of([lm])
+        return self.pobs.kf[rows], self.pobs.fi[rows]
+
+    def line_obs(self, lm: int):
+        rows = self.lobs.rows_of([lm])
+        return self.lobs.kf[rows], self.lobs.fi[rows]
+
+    def _merge(self, table: _ObsTable, nobs: np.ndarray,
+               valid_view: np.ndarray, last_kf: np.ndarray,
+               keep: int, kill: int):
+        """Fuse landmark ``kill`` into ``keep``: move its observation rows,
+        bump covis between every (keep-observer, kill-observer) pair, and
+        invalidate ``kill`` (loopClosureFuseLandmarks fuse-duplicates case,
+        mapHandler.cpp:5613-5656)."""
+        keep_rows = table.rows_of([keep])
+        kill_rows = table.rows_of([kill])
+        if len(keep_rows) and len(kill_rows):
+            a = np.repeat(table.kf[kill_rows], len(keep_rows))
+            b = np.tile(table.kf[keep_rows], len(kill_rows))
+            self._covis_pairs(a, b, +1)
+        table._idx_remove(kill_rows)
+        table.lm[kill_rows] = keep
+        table._idx_insert(kill_rows)
+        nobs[keep] += nobs[kill]
+        nobs[kill] = 0
+        valid_view[kill] = False
+        if len(kill_rows):
+            last_kf[keep] = max(last_kf[keep], int(table.kf[kill_rows].max()))
+        return kill_rows
+
+    def merge_point_landmarks(self, keep: int, kill: int):
+        """Returns the moved obs rows so the caller can re-point per-KF
+        feature->landmark links."""
+        return self._merge(self.pobs, self._pt_nobs,
+                           self.pt_valid, self._pt_last_kf, keep, kill)
+
+    def merge_line_landmarks(self, keep: int, kill: int):
+        return self._merge(self.lobs, self._ls_nobs,
+                           self.ls_valid, self._ls_last_kf, keep, kill)
+
+    def drop_keyframe_obs(self, kf_id: int):
+        """Remove every observation made by one keyframe (KF culling,
+        removeRedundantKFs :3899-4047).  Covis pairs between OTHER
+        keyframes are unaffected (sharing doesn't involve kf_id); the
+        culled KF's row/col is cleared wholesale, matching :4036-4039.
+        Landmarks ANCHORED at the culled KF (first_kf ownership — used by
+        the loop-closure rigid map correction, loop.py) are rebased onto
+        their oldest surviving observer, the array analog of the
+        reference's ownership hand-off (:3983-4009)."""
+        for table, nobs, valid_view, first_kf in (
+                (self.pobs, self._pt_nobs, self.pt_valid,
+                 self._pt_first_kf),
+                (self.lobs, self._ls_nobs, self.ls_valid,
+                 self._ls_first_kf)):
+            rows = np.where(table.valid[: table.n]
+                            & (table.kf[: table.n] == kf_id))[0]
+            if len(rows):
+                np.add.at(nobs, table.lm[rows], -1)
+                table.valid[rows] = False
+                table._idx_remove(rows)
+            # ownership rebase: oldest surviving observer takes over
+            n_lm = len(valid_view)
+            owned = np.where(valid_view
+                             & (first_kf[:n_lm] == kf_id))[0]
+            if len(owned):
+                _, lo, hi = table.group_slices(owned)
+                lens = hi - lo
+                live = table.rows_of(owned)
+                gid = np.repeat(np.arange(len(owned)), lens)
+                new_owner = np.full(len(owned), 1 << 30, np.int64)
+                np.minimum.at(new_owner, gid, table.kf[live])
+                has = new_owner < (1 << 30)
+                first_kf[owned[has]] = new_owner[has]
+        self.covis[kf_id, :] = 0
+        self.covis[:, kf_id] = 0
+
+    # -- covisibility -------------------------------------------------------
+
+    @property
+    def covis(self) -> np.ndarray:
+        """(K, K) covisibility-count view (full_graph)."""
+        k = len(self.keyframes)
+        return self._covis_buf[:k, :k]
+
+    @covis.setter
+    def covis(self, value):
+        k = len(self.keyframes)
+        self._covis_buf[:k, :k] = value
+
+    def expand_graphs(self):
+        """Grow covis to (K+1)^2 (expandGraphs :992) — amortized O(1) via
+        the capacity-doubling buffer; new row/col arrive zeroed."""
+        k = len(self.keyframes)
+        cap = self._covis_buf.shape[0]
+        if k > cap:
+            new = np.zeros((2 * cap, 2 * cap), np.int32)
+            new[:cap, :cap] = self._covis_buf
+            self._covis_buf = new
+        else:
+            # the freshly exposed row/col may hold counts of a previously
+            # truncated map (checkpoint restore reuse) — zero them
+            self._covis_buf[k - 1, :k] = 0
+            self._covis_buf[:k, k - 1] = 0
+
+    def local_kf_set(self) -> np.ndarray:
+        """formLocalMap (:1005): KFs covisible with the newest (covis >=
+        min_lm_cov_graph) or within the last min_kf_local_map KFs."""
+        k = len(self.keyframes)
+        newest = k - 1
+        local = np.zeros(k, bool)
+        local[max(0, k - self.cfg.min_kf_local_map):] = True
+        if k > 1:
+            local |= self.covis[newest] >= self.cfg.min_lm_cov_graph
+        active = np.asarray([kf.active for kf in self.keyframes])
+        return local & active
+
+    # -- legacy-style accessors (tests / tools) ------------------------------
+
+    @staticmethod
+    def _obs_lists(table: _ObsTable, n_lm: int) -> list[list[tuple]]:
+        order, lo, hi = table.group_slices(np.arange(n_lm))
+        return [[(int(table.kf[r]), int(table.fi[r]))
+                 for r in order[lo[i]: hi[i]]] for i in range(n_lm)]
+
+    @property
+    def pt_obs(self) -> list[list[tuple]]:
+        """Observation lists in (kf, feat) tuple form — compatibility view
+        for tests and serialization; not used on hot paths."""
+        return self._obs_lists(self.pobs, self.n_pt)
+
+    @property
+    def ls_obs(self) -> list[list[tuple]]:
+        return self._obs_lists(self.lobs, self.n_ls)
+
+
+
+# ---------------------------------------------------------------------------
+# Host helpers
+# ---------------------------------------------------------------------------
+
+
+def _np_transform_plucker(T: np.ndarray, L: np.ndarray) -> np.ndarray:
+    """Host Pluecker transform: n' = R n + t x (R d); d' = R d."""
+    R, t = T[:3, :3], T[:3, 3]
+    n = L[..., :3] @ R.T
+    d = L[..., 3:] @ R.T
+    return np.concatenate([n + np.cross(np.broadcast_to(t, d.shape), d), d], axis=-1)
+
+
+def _np_normalize_plucker(L: np.ndarray) -> np.ndarray:
+    dn = np.linalg.norm(L[..., 3:], axis=-1, keepdims=True)
+    return L / np.where(dn > 1e-12, dn, 1.0)
+
+
+def _orth_from_plucker_meta(prob, meta):
+    """Pluecker -> orth fill (f32) of a numpy chunk BAProblem whose lines
+    ride ``meta['lines_plucker']``."""
+    lp = meta["lines_plucker"]
+    if lp is None:
+        return prob
+    nls = len(meta["ls_ids"])
+    orth = np.zeros_like(prob.lines_orth)
+    if nls:
+        scales = np.linalg.norm(lp[:nls], axis=-1)
+        unit = (lp[:nls] / np.maximum(scales, 1e-12)[:, None]).astype(np.float32)
+        orth[:nls] = plucker_to_orth(torch.from_numpy(unit)).numpy()
+        prob.lines_scale[:nls] = scales
+    return prob._replace(lines_orth=orth)
+
+
+def _pad_bucket(n: int, lo: int = 256) -> int:
+    """Round a candidate count up to a power of two (at least ``lo``)."""
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+def _pad_rows(a: np.ndarray, n: int) -> np.ndarray:
+    if len(a) >= n:
+        return a[:n]
+    return np.concatenate([a, np.zeros((n - len(a),) + a.shape[1:], a.dtype)])
+
+
+def _popcount32(x: np.ndarray) -> np.ndarray:
+    """Set bits per uint32 word (SWAR; np.bitwise_count needs numpy 2)."""
+    x = x - ((x >> 1) & np.uint32(0x55555555))
+    x = (x & np.uint32(0x33333333)) + ((x >> 2) & np.uint32(0x33333333))
+    x = (x + (x >> 4)) & np.uint32(0x0F0F0F0F)
+    return (x * np.uint32(0x01010101)) >> 24
+
+
+def _locked(fn):
+    """Run a MapHandler method under its reentrant host-map lock: the
+    mapping worker and outside callers (flush_ba write-back, trajectory
+    reads, GBA) must not mutate the obs tables concurrently."""
+
+    @functools.wraps(fn)
+    def inner(self, *a, **k):
+        with self._map_lock:
+            return fn(self, *a, **k)
+    return inner
+
+
+def _line_eq(sp, ep):
+    """Normalized image line through two 2D points."""
+    one = torch.ones_like(sp[..., :1])
+    l = torch.linalg.cross(torch.cat([sp, one], -1), torch.cat([ep, one], -1), dim=-1)
+    return l / torch.clamp(torch.hypot(l[..., 0], l[..., 1]), min=1e-9)[..., None]
+
+
+def _scatter_any(n: int, idx: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
+    """(n,) bool: some flagged entry points at slot i."""
+    cnt = torch.zeros(n, dtype=torch.int32, device=flags.device)
+    return cnt.index_add_(0, torch.clamp(idx, min=0).long(), flags.to(torch.int32)) > 0
+
+
+def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    return x[torch.clamp(idx, min=0).long()]
+
+
+class MapHandler:
+    """Host orchestrator of keyframe insertion, local and global BA."""
+
+    def __init__(self, cam: StereoCamera, cfg: MapConfig = MapConfig(),
+                 ba_cfg: Optional[ba_mod.BAConfig] = None, tracker_cfg=None, *,
+                 device):
+        if cfg.use_lines and not cfg.plucker_lines:
+            raise NotImplementedError(
+                "endpoint-line mapping (plucker_lines=False) is not ported yet "
+                "(ROADMAP queue 1: endpoint mapping)")
+        if cfg.has_refinement:
+            raise NotImplementedError(
+                "has_refinement is not ported yet (ROADMAP queue 1: has_refinement)")
+        self.cam = cam
+        self.cfg = cfg
+        self.ba_cfg = ba_cfg or ba_mod.BAConfig()
+        self.tracker_cfg = tracker_cfg
+        self.device = torch.device(device)
+        self.map = SlamMap(cfg)
+        # deferred local BA: the solve whose fetch and write-back wait for
+        # the next keyframe's association fetch (the reference's LBA-lag
+        # protocol, mapHandler.cpp:2160)
+        self._ba_pending = None       # (device buffer, layout, meta)
+        self._ba_lock = threading.Lock()
+        # serializes host map mutation and reads between the mapping
+        # worker and outside callers; reentrant (add_keyframe -> flush_ba)
+        self._map_lock = threading.RLock()
+        self.n_local_ba_applied = 0   # local-BA results written back
+
+    # -- device association (the JAX package's fused programs) -------------
+
+    def _kf2kf_points(self, T_rel, dp, dk):
+        """Windowed and global KF2KF point matches (matchKF2KFPoints
+        :237-366)."""
+        cfg, cam = self.cfg, self.cam
+        Pc = lie.transform_point(T_rel, dp.points.P)
+        ok_prev = dp.points.valid & (Pc[..., 2] > 0)
+        mask_w = M.window_pair_mask(cam.project(Pc), dk.points.uv, ok_prev,
+                                    dk.points.valid, cfg.match_window, cfg.match_window)
+        m_w = M.match_descriptors(dp.points.desc, dk.points.desc, mask_w, cfg.nnr)
+        mask_g = ok_prev[:, None] & dk.points.valid[None, :]
+        m_g = M.match_descriptors(dp.points.desc, dk.points.desc, mask_g, cfg.nnr)
+        return m_w.idx, m_g.idx
+
+    def _kf2kf_lines(self, dp, dk):
+        """KF2KF line matches: full-segment window + direction filter
+        (matchKF2KFLines :368-590, matching.cpp:179-235)."""
+        cfg = self.cfg
+        lmask = M.line_pair_mask(dp.lines.sp, dp.lines.ep, dk.lines.sp, dk.lines.ep,
+                                 dp.lines.valid, dk.lines.valid,
+                                 cfg.match_window * 2.0, cfg.line_sim_th)
+        return M.match_descriptors(dp.lines.desc, dk.lines.desc, lmask, cfg.nnr).idx
+
+    def _kf2kf_prog(self, T_rel, dp, dk) -> torch.Tensor:
+        """[windowed idx | global idx | line idx] as one f32 buffer."""
+        idx_w, idx_g = self._kf2kf_points(T_rel, dp, dk)
+        parts = [idx_w, idx_g]
+        if self.cfg.use_lines:
+            parts.append(self._kf2kf_lines(dp, dk))
+        return torch.cat(parts).to(torch.float32)
+
+    def _assoc_prog(self, Tm, dp, dk, prev_pt_lm, prev_ls_lm, cpack, dpack, cval,
+                    cand_pf, nb, nbl) -> torch.Tensor:
+        """The whole per-KF association, one output buffer: KF2KF matching
+        (windowed or global, chosen on the device), the chi^2 creation
+        gates (:489-494, :557-562), the free-feature sets, Map2KF matching
+        against the staged local-map candidates, and the packed copy of
+        the new keyframe's features."""
+        cfg, cam = self.cfg, self.cam
+        T_rel, T_c_w, T_w_prev = Tm[0], Tm[1], Tm[2]
+        f32 = torch.float32
+        idx_w, idx_g = self._kf2kf_points(T_rel, dp, dk)
+        idx_pt = torch.where(torch.sum(idx_w >= 0) >= cfg.min_pt_matches, idx_w, idx_g)
+        # creation gate: reproject the would-be landmark into the new KF
+        Pc2 = lie.transform_point(T_c_w, lie.transform_point(T_w_prev, dp.points.P))
+        e2 = torch.sum((cam.project(Pc2) - _gather(dk.points.uv, idx_pt)) ** 2, dim=-1)
+        chi_pt = (Pc2[..., 2] > 0) & (e2 <= CHI2_GATE * 4.0)
+        acc_pt = (idx_pt >= 0) & ((prev_pt_lm >= 0) | chi_pt)
+        kfree = dk.points.valid & ~_scatter_any(dk.points.uv.shape[0], idx_pt, acc_pt)
+        parts = [idx_pt.to(f32), chi_pt.to(f32)]
+        pf = cand_pf[:nb]
+        cand_valid = cval[:nb] & ~((pf >= 0) & _gather(acc_pt, pf))
+        if cfg.use_lines:
+            idx_l = self._kf2kf_lines(dp, dk)
+            # lift to world (renormalized, :451-459), project into the new KF
+            Lw = normalize_plucker(transform_plucker(T_w_prev, dp.lines.NDc))
+            l2 = cam.project_line(transform_plucker(T_c_w, Lw))
+            nrm = torch.hypot(l2[..., 0], l2[..., 1])
+            good = nrm > 1e-9
+            nrm = torch.where(good, nrm, 1.0)
+            spt, ept = _gather(dk.lines.sp, idx_l), _gather(dk.lines.ep, idx_l)
+            e0 = (l2[..., 0] * spt[..., 0] + l2[..., 1] * spt[..., 1] + l2[..., 2]) / nrm
+            e1 = (l2[..., 0] * ept[..., 0] + l2[..., 1] * ept[..., 1] + l2[..., 2]) / nrm
+            chi_ls = good & (e0 * e0 + e1 * e1 <= CHI2_GATE * 4.0)
+            acc_ls = (idx_l >= 0) & ((prev_ls_lm >= 0) | chi_ls)
+            kls_free = dk.lines.valid & ~_scatter_any(dk.lines.sp.shape[0], idx_l, acc_ls)
+            parts += [idx_l.to(f32), chi_ls.to(f32)]
+            pfl = cand_pf[nb:]
+            lcand_valid = cval[nb:] & ~((pfl >= 0) & _gather(acc_ls, pfl))
+        else:
+            kls_free = torch.zeros_like(dk.lines.valid)
+            lcand_valid = cval[nb:]
+        m2 = self._map2kf_core(T_c_w, cpack, dpack, cand_valid, lcand_valid, kfree,
+                               kls_free, dk, nb, nbl)
+        return torch.cat(parts + [m2, _pack_feats(dk)])
+
+    def _map2kf_core(self, T_c_w, cpack, dpack, cand_valid, lcand_valid, kfree,
+                     kls_free, dk, nb, nbl) -> torch.Tensor:
+        """Map2KF matching of staged candidates (matchMap2KFPoints
+        :697-797, matchMap2KFLines :799-921)."""
+        cfg, cam = self.cfg, self.cam
+        win = cfg.match_window
+        f32 = torch.float32
+        kuv = dk.points.uv
+        Pc = lie.transform_point(T_c_w, cpack[:nb])
+        proj = cam.project(Pc)
+        inside = (cand_valid & (Pc[..., 2] > 0) & (proj[..., 0] >= 0)
+                  & (proj[..., 0] < cam.width) & (proj[..., 1] >= 0)
+                  & (proj[..., 1] < cam.height))
+        mask = M.window_pair_mask(proj, kuv, inside, kfree, win, win)
+        m = M.match_descriptors(dpack[:nb], dk.points.desc, mask, cfg.nnr)
+        p_err = torch.linalg.norm(proj - _gather(kuv, m.idx), dim=-1)
+        if not cfg.use_lines:
+            return torch.cat([m.idx.to(f32), p_err])
+        # lines: projected world endpoints, inside-image gate, full-segment
+        # window + direction cosine, mutual NNR, endpoint-to-line errors
+        sPc = lie.transform_point(T_c_w, cpack[nb:nb + nbl])
+        ePc = lie.transform_point(T_c_w, cpack[nb + nbl:])
+        spf, epf = cam.project(sPc), cam.project(ePc)
+
+        def _in(p, z):
+            return ((z > 0) & (p[..., 0] >= 0) & (p[..., 0] < cam.width)
+                    & (p[..., 1] >= 0) & (p[..., 1] < cam.height))
+
+        kls_sp, kls_ep = dk.lines.sp, dk.lines.ep
+        l_inside = lcand_valid & _in(spf, sPc[..., 2]) & _in(epf, ePc[..., 2])
+        v1, v2 = epf - spf, kls_ep - kls_sp
+        n1 = torch.clamp(torch.linalg.norm(v1, dim=-1, keepdim=True), min=1e-9)
+        n2 = torch.clamp(torch.linalg.norm(v2, dim=-1, keepdim=True), min=1e-9)
+        cos = torch.abs((v1 / n1) @ (v2 / n2).T)
+        near = M.segment_window_mask(spf, epf, kls_sp, kls_ep, win * 2.0)
+        base = l_inside[:, None] & kls_free[None, :] & (cos >= cfg.line_sim_th)
+        lcand_desc = dpack[nb:]
+        m_l = M.match_descriptors(lcand_desc, dk.lines.desc, near & base, cfg.nnr)
+        # global fallback (match() path :875-878)
+        m_lg = M.match_descriptors(lcand_desc, dk.lines.desc, base, cfg.nnr)
+        le = _line_eq(kls_sp, kls_ep)
+
+        def _errs(idx):
+            lsel = _gather(le, idx)
+            e_s = torch.abs(lsel[..., 0] * spf[..., 0] + lsel[..., 1] * spf[..., 1]
+                            + lsel[..., 2])
+            e_e = torch.abs(lsel[..., 0] * epf[..., 0] + lsel[..., 1] * epf[..., 1]
+                            + lsel[..., 2])
+            return torch.maximum(e_s, e_e)
+
+        return torch.cat([m.idx.to(f32), p_err, m_l.idx.to(f32), m_lg.idx.to(f32),
+                          _errs(m_l.idx), _errs(m_lg.idx)])
+
+    def _map2kf_prog(self, T_c_w, cpack, dpack, vpack, dk, nb, nbl) -> torch.Tensor:
+        nk = dk.points.uv.shape[0]
+        return self._map2kf_core(T_c_w, cpack, dpack, vpack[:nb], vpack[nb:nb + nbl],
+                                 vpack[nb + nbl:nb + nbl + nk], vpack[nb + nbl + nk:],
+                                 dk, nb, nbl)
+
+    # -- public API (mapHandler.cpp initialize :50 / addKeyFrame :121) ----
+
+    @_locked
+    def initialize(self, pose: np.ndarray, feats: StereoFeatures):
+        kf = KeyframeRecord(0, pose, feats)
+        kf.T_vo = kf.T_w_k.copy()
+        self.map.keyframes.append(kf)
+        self.map.expand_graphs()
+        # every stereo feature of KF0 seeds a landmark
+        self._spawn_landmarks(kf)
+
+    def _trim_device_cache(self, keep_last: int = 2):
+        """Drop the device features of all but the newest keyframes
+        (association reads only the previous and the current one)."""
+        for rec in self.map.keyframes[:-keep_last]:
+            rec.dev = None
+
+    @_locked
+    def add_keyframe(self, pose: np.ndarray, feats: StereoFeatures,
+                     run_ba: bool = True, defer_ba: bool = False):
+        """Insert one keyframe.  ``pose`` is the front end's (VO) pose; the
+        map pose is chained through the previous keyframe's optimized pose
+        (T_curr_w = T_prev * T_rel, addKeyFrame :162)."""
+        self._trim_device_cache()
+        kf = self._associate_and_insert(pose, feats)
+        self._spawn_landmarks(kf)  # leftovers become new landmarks
+        if run_ba:
+            self.local_bundle_adjustment(defer=defer_ba)
+        self.cull_landmarks()
+        if (self.cfg.desc_refresh_kfs > 0 and kf.id > 0
+                and kf.id % self.cfg.desc_refresh_kfs == 0):
+            self.refresh_landmark_descriptors()
+        if self.cfg.cull_kf_every > 0 and kf.id % self.cfg.cull_kf_every == 0:
+            self.flush_ba()
+            self.cull_redundant_keyframes(self.cfg.max_common_fts_kf)
+        return kf
+
+    def _stage_candidates(self, cand, cand_l, nb, nbl):
+        """Candidate landmarks padded to (nb, nbl): world points and line
+        endpoints, descriptors, validity."""
+        mp = self.map
+        cpack = np.zeros((nb + 2 * nbl, 3), np.float32)
+        cpack[:nb] = _pad_rows(mp.pt_w[cand], nb)
+        cpack[nb:nb + nbl] = _pad_rows(mp.ls_epw[cand_l, 0], nbl)
+        cpack[nb + nbl:] = _pad_rows(mp.ls_epw[cand_l, 1], nbl)
+        dpack = np.zeros((nb + nbl, 8), np.int32)
+        dpack[:nb] = _pad_rows(mp.pt_desc[cand], nb)
+        dpack[nb:] = _pad_rows(mp.ls_desc[cand_l], nbl)
+        cval = np.zeros(nb + nbl, bool)
+        cval[:nb] = np.arange(nb) < len(cand)
+        cval[nb:] = np.arange(nbl) < len(cand_l)
+        return cpack, dpack, cval
+
+    def _associate_and_insert(self, pose: np.ndarray,
+                              feats: StereoFeatures) -> KeyframeRecord:
+        """Insert a keyframe with the whole association (KF2KF + Map2KF +
+        chi^2 gates + packed host copy) as one device function and one
+        copy.  Map2KF candidates come from the local map formed after the
+        previous keyframe, the reference's order (:923-990, :1005)."""
+        mp = self.map
+        cfg = self.cfg
+        dev = self.device
+        prev = mp.keyframes[-1]
+        pose_vo = np.asarray(pose, np.float64)
+        # provisional chain if a deferred BA is in flight; re-chained below
+        rel = np.linalg.inv(getattr(prev, "T_vo", prev.T_w_k)) @ pose_vo
+        pose = prev.T_w_k @ rel
+        T_c_w_new = np.linalg.inv(pose)
+        Tm = np.stack([T_c_w_new @ prev.T_w_k, T_c_w_new,
+                       prev.T_w_k]).astype(np.float32)
+
+        local_kf = mp.local_kf_set()
+        cand = np.where(mp.pt_valid
+                        & self._local_landmark_mask(mp.pobs, mp.n_pt, local_kf))[0]
+        if cfg.use_lines:
+            cand_l = np.where(mp.ls_valid
+                              & self._local_landmark_mask(mp.lobs, mp.n_ls, local_kf))[0]
+        else:
+            cand_l = np.zeros(0, np.int64)
+        nb = _pad_bucket(len(cand))
+        nbl = _pad_bucket(len(cand_l), lo=64)
+        cpack, dpack, cval = self._stage_candidates(cand, cand_l, nb, nbl)
+        # candidate -> prev-KF feature index, so the association can skip
+        # candidates that KF2KF just re-observed
+        pf = np.full(nb + nbl, -1, np.int64)
+        w = prev.pt_lm >= 0
+        inv = np.full(mp.n_pt, -1, np.int64)
+        inv[prev.pt_lm[w]] = np.where(w)[0]
+        pf[:len(cand)] = inv[cand]
+        if cfg.use_lines and len(cand_l):
+            wl = prev.ls_lm >= 0
+            inv_l = np.full(mp.n_ls, -1, np.int64)
+            inv_l[prev.ls_lm[wl]] = np.where(wl)[0]
+            pf[nb:nb + len(cand_l)] = inv_l[cand_l]
+
+        out = self._assoc_prog(
+            _upload(Tm, dev), prev.dev_feats(), feats, _upload(prev.pt_lm, dev),
+            _upload(prev.ls_lm, dev), _upload(cpack, dev), _upload(dpack, dev),
+            _upload(cval, dev), _upload(pf, dev), nb, nbl)
+        # one copy with any deferred local-BA result
+        buf = self._fetch_with_pending(out)
+        n, nl = len(prev.pt_valid), len(prev.ls_valid)
+        nk2 = 2 * n + (2 * nl if cfg.use_lines else 0)
+        nm2 = 2 * nb + (4 * nbl if cfg.use_lines else 0)
+        kf_buf = buf[:nk2]
+        m2_buf = buf[nk2: nk2 + nm2]
+        packed = buf[nk2 + nm2:]
+
+        # a deferred BA applied by the fetch may have moved prev: re-chain
+        # (the gates used the provisional pose; their chi^2 slack absorbs
+        # the one-solve delta, mapHandler.cpp:2160)
+        pose = prev.T_w_k @ rel
+        kf = KeyframeRecord(len(mp.keyframes), pose, feats, packed=packed)
+        kf.T_vo = pose_vo
+        mp.keyframes.append(kf)
+        mp.expand_graphs()
+
+        self._apply_kf2kf_points(kf, prev, kf_buf[:n].astype(np.int64),
+                                 kf_buf[n: 2 * n] > 0.5)
+        if cfg.use_lines:
+            self._apply_kf2kf_lines(kf, prev, kf_buf[2 * n: 2 * n + nl].astype(np.int64),
+                                    kf_buf[2 * n + nl:] > 0.5)
+        self._apply_map2kf(kf, cand, cand_l, m2_buf, nb, nbl)
+        return kf
+
+    # -- association (split form) -----------------------------------------
+
+    def _match_kf2kf(self, kf: KeyframeRecord):
+        """KF2KF matching of the newest keyframe against the previous one
+        with the host chi^2 gates (matchKF2KFPoints :237 / Lines :368);
+        the split association the pose refinement path runs."""
+        prev = self.map.keyframes[-2]
+        T_rel = np.linalg.inv(kf.T_w_k) @ prev.T_w_k  # prev-cam -> new-cam
+        buf = self._kf2kf_prog(_upload(T_rel.astype(np.float32), self.device),
+                               prev.dev_feats(), kf.dev_feats()).cpu().numpy()
+        n = len(prev.pt_valid)
+        idx_w, idx_g = buf[:n], buf[n: 2 * n]
+        # windowed -> global fallback when too few matches (:277-281)
+        idx = idx_w if (idx_w >= 0).sum() >= self.cfg.min_pt_matches else idx_g
+        self._apply_kf2kf_points(kf, prev, idx.astype(np.int64))
+        if self.cfg.use_lines:
+            self._apply_kf2kf_lines(kf, prev, buf[2 * n:].astype(np.int64))
+
+    def _apply_kf2kf_points(self, kf: KeyframeRecord, prev: KeyframeRecord,
+                            idx: np.ndarray, chi: np.ndarray | None = None):
+        """Host table updates for the KF2KF point matches: extend existing
+        landmarks, create new ones gated by the reprojection chi^2
+        (:489-494; ``chi`` carries the in-program gate of the fused path,
+        None recomputes it on host)."""
+        mp = self.map
+        i1 = np.where(idx >= 0)[0]
+        i2 = idx[i1].astype(np.int64)
+        lm = prev.pt_lm[i1]
+        has = lm >= 0
+        n1, n2 = i1[~has], i2[~has]
+        R, t = prev.T_w_k[:3, :3], prev.T_w_k[:3, 3]
+        Pw = prev.pt_P[n1] @ R.T + t
+        ok = chi[n1] if chi is not None else self._point_chi2_ok(Pw, kf, n2)
+        ids = mp.new_points(Pw[ok], prev.pt_desc[n1[ok]], prev.id, n1[ok])
+        prev.pt_lm[n1[ok]] = ids
+        all_lms = np.concatenate([lm[has], ids])
+        all_fis = np.concatenate([i2[has], n2[ok]])
+        mp.add_point_obs(all_lms, kf.id, all_fis)
+        kf.pt_lm[all_fis] = all_lms
+
+    def _apply_kf2kf_lines(self, kf: KeyframeRecord, prev: KeyframeRecord,
+                           idx_l: np.ndarray, chi: np.ndarray | None = None):
+        mp = self.map
+        R, t = prev.T_w_k[:3, :3], prev.T_w_k[:3, 3]
+        i1 = np.where(idx_l >= 0)[0]
+        i2 = idx_l[i1].astype(np.int64)
+        lm = prev.ls_lm[i1]
+        has = lm >= 0
+        n1, n2 = i1[~has], i2[~has]
+        # lift the prev-KF camera-frame Pluecker lines to world and
+        # renormalize ||d||=1 (mapHandler.cpp:451-459)
+        Lw = _np_normalize_plucker(
+            _np_transform_plucker(prev.T_w_k, prev.ls_NDc[n1]))
+        ok = chi[n1] if chi is not None else self._line_chi2_ok(Lw, kf, n2)
+        ep_w = np.stack([prev.ls_sP[n1[ok]] @ R.T + t,
+                         prev.ls_eP[n1[ok]] @ R.T + t], axis=1)
+        ids = mp.new_lines(Lw[ok], prev.ls_desc[n1[ok]], prev.id, n1[ok],
+                           ep_w)
+        prev.ls_lm[n1[ok]] = ids
+        all_lms = np.concatenate([lm[has], ids])
+        all_fis = np.concatenate([i2[has], n2[ok]])
+        mp.add_line_obs(all_lms, kf.id, all_fis)
+        kf.ls_lm[all_fis] = all_lms
+
+    def _local_landmark_mask(self, table: _ObsTable, n_lm: int,
+                             local_kf: np.ndarray) -> np.ndarray:
+        """Landmarks observed by at least one local keyframe — one
+        vectorized pass over the flat obs table (formLocalMap landmark
+        marking :1052-1118)."""
+        sel = table.valid[: table.n] & local_kf[table.kf[: table.n]]
+        mask = np.zeros(n_lm, bool)
+        mask[table.lm[: table.n][sel]] = True
+        return mask
+
+    def _match_map2kf(self, kf: KeyframeRecord):
+        """Track local-map landmarks not yet matched into the new keyframe
+        (matchMap2KFPoints :697 / Lines :799)."""
+        mp = self.map
+        cfg = self.cfg
+        dev = self.device
+        local_kf = mp.local_kf_set()
+        in_kf = np.zeros(mp.n_pt, bool)
+        in_kf[kf.pt_lm[kf.pt_lm >= 0]] = True
+        cand = np.where(mp.pt_valid & self._local_landmark_mask(mp.pobs, mp.n_pt, local_kf)
+                        & ~in_kf)[0]
+        if cfg.use_lines:
+            in_kf_l = np.zeros(mp.n_ls, bool)
+            in_kf_l[kf.ls_lm[kf.ls_lm >= 0]] = True
+            cand_l = np.where(mp.ls_valid
+                              & self._local_landmark_mask(mp.lobs, mp.n_ls, local_kf)
+                              & ~in_kf_l)[0]
+        else:
+            cand_l = np.zeros(0, np.int64)
+        if not len(cand) and not len(cand_l):
+            return
+        nb = _pad_bucket(len(cand))
+        nbl = _pad_bucket(len(cand_l), lo=64)
+        cpack, dpack, cval = self._stage_candidates(cand, cand_l, nb, nbl)
+        vpack = np.concatenate([cval, kf.pt_valid & (kf.pt_lm < 0),
+                                kf.ls_valid & (kf.ls_lm < 0)])
+        buf = self._map2kf_prog(_upload(np.linalg.inv(kf.T_w_k).astype(np.float32), dev),
+                                _upload(cpack, dev), _upload(dpack, dev),
+                                _upload(vpack, dev), kf.dev_feats(), nb, nbl)
+        self._apply_map2kf(kf, cand, cand_l, buf.cpu().numpy(), nb, nbl)
+
+    def _apply_map2kf(self, kf: KeyframeRecord, cand: np.ndarray,
+                      cand_l: np.ndarray, buf: np.ndarray, nb: int,
+                      nbl: int):
+        """Host table updates from the fetched Map2KF result buffer."""
+        mp = self.map
+        cfg = self.cfg
+        idx = buf[:nb].astype(np.int64)
+        p_err = buf[nb: 2 * nb]
+        if cfg.use_lines:
+            idx_l = buf[2 * nb: 2 * nb + nbl].astype(np.int64)
+            idx_lg = buf[2 * nb + nbl: 2 * nb + 2 * nbl].astype(np.int64)
+            l_errs = (buf[2 * nb + 2 * nbl: 2 * nb + 3 * nbl],
+                      buf[2 * nb + 3 * nbl:])
+        if len(cand):
+            idx = idx[: len(cand)].astype(np.int64)
+            p_err = p_err[: len(cand)]
+            # epipolar-style gate: projected distance (:778)
+            acc = (idx >= 0) & (p_err <= cfg.match_window)
+            mp.add_point_obs(cand[acc], kf.id, idx[acc])
+            kf.pt_lm[idx[acc]] = cand[acc]
+
+        if len(cand_l):
+            # windowed -> global fallback when too few matches (:875-878)
+            nw = int((idx_l[: len(cand_l)] >= 0).sum())
+            if nw >= cfg.min_ls_matches:
+                lidx, lerr = idx_l, l_errs[0]
+            else:
+                lidx, lerr = idx_lg, l_errs[1]
+            lidx = lidx[: len(cand_l)].astype(np.int64)
+            lerr = lerr[: len(cand_l)]
+            # epipolar gate at maxKFEpipL (:889-894; abs of the signed
+            # endpoint-to-line errors)
+            acc = (lidx >= 0) & (lerr < cfg.max_kf_epip_l)
+            mp.add_line_obs(cand_l[acc], kf.id, lidx[acc])
+            kf.ls_lm[lidx[acc]] = cand_l[acc]
+
+    def _spawn_landmarks(self, kf: KeyframeRecord):
+        """Unmatched stereo features of the newest KF seed new landmarks
+        (batched; matchKF2KF* landmark creation for the leftovers)."""
+        mp = self.map
+        R, t = kf.T_w_k[:3, :3], kf.T_w_k[:3, 3]
+        fis = np.where(kf.pt_valid & (kf.pt_lm < 0))[0]
+        if len(fis):
+            Pw = kf.pt_P[fis] @ R.T + t
+            kf.pt_lm[fis] = mp.new_points(Pw, kf.pt_desc[fis], kf.id, fis)
+        if self.cfg.use_lines:
+            fis = np.where(kf.ls_valid & (kf.ls_lm < 0))[0]
+            if len(fis):
+                Lw = _np_normalize_plucker(
+                    _np_transform_plucker(kf.T_w_k, kf.ls_NDc[fis]))
+                ep_w = np.stack([kf.ls_sP[fis] @ R.T + t,
+                                 kf.ls_eP[fis] @ R.T + t], axis=1)
+                kf.ls_lm[fis] = mp.new_lines(Lw, kf.ls_desc[fis], kf.id,
+                                             fis, ep_w)
+
+    def _point_chi2_ok(self, Pw: np.ndarray, kf: KeyframeRecord,
+                       feat_idx: np.ndarray) -> np.ndarray:
+        """Batched reprojection chi^2 creation gate (:489-494)."""
+        if not len(Pw):
+            return np.zeros(0, bool)
+        T_c_w = np.linalg.inv(kf.T_w_k)
+        Pc = Pw @ T_c_w[:3, :3].T + T_c_w[:3, 3]
+        z = np.maximum(Pc[:, 2], 1e-9)
+        fx, fy = float(self.cam.fx), float(self.cam.fy)
+        cx, cy = float(self.cam.cx), float(self.cam.cy)
+        u = cx + fx * Pc[:, 0] / z
+        v = cy + fy * Pc[:, 1] / z
+        err = np.stack([u, v], -1) - kf.pt_uv[feat_idx]
+        return (Pc[:, 2] > 0) & ((err * err).sum(-1) <= CHI2_GATE * 4.0)
+
+    def _line_chi2_ok(self, Lw: np.ndarray, kf: KeyframeRecord,
+                      feat_idx: np.ndarray) -> np.ndarray:
+        if not len(Lw):
+            return np.zeros(0, bool)
+        T_c_w = np.linalg.inv(kf.T_w_k)
+        Lc = _np_transform_plucker(T_c_w, Lw)
+        K_L = np.asarray(self.cam.plucker_K)
+        l = Lc[:, :3] @ K_L.T
+        nrm = np.hypot(l[:, 0], l[:, 1])
+        good = nrm > 1e-9
+        nrm = np.where(good, nrm, 1.0)
+        sp, ep = kf.ls_sp[feat_idx], kf.ls_ep[feat_idx]
+        e0 = (l[:, 0] * sp[:, 0] + l[:, 1] * sp[:, 1] + l[:, 2]) / nrm
+        e1 = (l[:, 0] * ep[:, 0] + l[:, 1] * ep[:, 1] + l[:, 2]) / nrm
+        return good & (e0 * e0 + e1 * e1 <= CHI2_GATE * 4.0)
+
+
+    # -- bundle adjustment -------------------------------------------------
+
+    def _assemble_problem(self, local_ids: list[int], pt_ids: np.ndarray,
+                          ls_ids: np.ndarray, cap_pts: int, cap_ls: int,
+                          cap_pobs: int, cap_lobs: int, fix_rule: str = "local",
+                          cap_k: int | None = None):
+        """One padded numpy BAProblem over the given keyframes and
+        landmarks, vectorized over the flat observation tables
+        (localBundleAdjustmentForPlukerWithG2O graph build :5870-6049).
+        Lines ride ``meta['lines_plucker']`` (||d|| = 1); their orth form
+        is filled in later.  fix_rule 'local' fixes the oldest local KF and
+        KF0 (LBA gauge), 'kf0' fixes only KF0 (GBA, :3022)."""
+        mp = self.map
+        K = cap_k if cap_k is not None else max(len(local_ids), 1)
+        slot_of_kf = np.full(len(mp.keyframes), -1, np.int64)
+        slot_of_kf[local_ids] = np.arange(len(local_ids))
+
+        dtype = np.float32
+        T = np.tile(np.eye(4, dtype=dtype), (K, 1, 1))
+        pose_valid = np.zeros(K, bool)
+        pose_fixed = np.zeros(K, bool)
+        for s, kfid in enumerate(local_ids):
+            T[s] = np.linalg.inv(mp.keyframes[kfid].T_w_k)
+            pose_valid[s] = True
+            pose_fixed[s] = kfid == 0 or (fix_rule == "local" and kfid == local_ids[0])
+
+        # stacked per-KF feature lookups (all records share the front end's
+        # fixed feature capacity)
+        kf_pt_uv = np.stack([mp.keyframes[k].pt_uv for k in local_ids])
+        kf_pt_sig = np.stack([mp.keyframes[k].pt_sigma2 for k in local_ids])
+        kf_ls_sp = np.stack([mp.keyframes[k].ls_sp for k in local_ids])
+        kf_ls_ep = np.stack([mp.keyframes[k].ls_ep for k in local_ids])
+        kf_ls_sig = np.stack([mp.keyframes[k].ls_sigma2 for k in local_ids])
+
+        pslot = np.full(mp.n_pt, -1, np.int64)
+        pslot[pt_ids] = np.arange(len(pt_ids))
+        lslot = np.full(mp.n_ls, -1, np.int64)
+        lslot[ls_ids] = np.arange(len(ls_ids))
+
+        points = np.zeros((cap_pts, 3), dtype)
+        point_valid = np.zeros(cap_pts, bool)
+        points[: len(pt_ids)] = mp.pt_w[pt_ids]
+        point_valid[: len(pt_ids)] = True
+        line_valid = np.zeros(cap_ls, bool)
+        lines_plucker = None
+        if len(ls_ids):
+            lines_plucker = np.zeros((cap_ls, 6), dtype)
+            lines_plucker[: len(ls_ids)] = mp.ls_w[ls_ids]
+            line_valid[: len(ls_ids)] = True
+
+        tb = mp.pobs
+        psel = (tb.valid[: tb.n] & (slot_of_kf[tb.kf[: tb.n]] >= 0)
+                & (pslot[tb.lm[: tb.n]] >= 0))
+        prows = np.where(psel)[0]
+        if len(prows) > cap_pobs:
+            log.warning("BA point-obs capacity exceeded: %d > %d rows (dropping "
+                        "overflow; raise MapConfig.ba_pobs or use the chunked GBA)",
+                        len(prows), cap_pobs)
+            prows = prows[:cap_pobs]
+        n = len(prows)
+        cam_slots = slot_of_kf[tb.kf[prows]]
+        p_cam = np.zeros(cap_pobs, np.int64)
+        p_lm = np.zeros(cap_pobs, np.int64)
+        p_uv = np.zeros((cap_pobs, 2), dtype)
+        p_sig = np.ones(cap_pobs, dtype)
+        p_val = np.zeros(cap_pobs, bool)
+        p_cam[:n] = cam_slots
+        p_lm[:n] = pslot[tb.lm[prows]]
+        p_uv[:n] = kf_pt_uv[cam_slots, tb.fi[prows]]
+        p_sig[:n] = kf_pt_sig[cam_slots, tb.fi[prows]]
+        p_val[:n] = True
+
+        tb = mp.lobs
+        lsel = (tb.valid[: tb.n] & (slot_of_kf[tb.kf[: tb.n]] >= 0)
+                & (lslot[tb.lm[: tb.n]] >= 0))
+        lrows = np.where(lsel)[0]
+        if len(lrows) > cap_lobs:
+            log.warning("BA line-obs capacity exceeded: %d > %d rows",
+                        len(lrows), cap_lobs)
+            lrows = lrows[:cap_lobs]
+        nl = len(lrows)
+        cam_slots = slot_of_kf[tb.kf[lrows]]
+        l_cam = np.zeros(cap_lobs, np.int64)
+        l_lm = np.zeros(cap_lobs, np.int64)
+        l_sobs = np.zeros((cap_lobs, 2), dtype)
+        l_eobs = np.zeros((cap_lobs, 2), dtype)
+        l_sig = np.ones(cap_lobs, dtype)
+        l_val = np.zeros(cap_lobs, bool)
+        l_cam[:nl] = cam_slots
+        l_lm[:nl] = lslot[tb.lm[lrows]]
+        l_sobs[:nl] = kf_ls_sp[cam_slots, tb.fi[lrows]]
+        l_eobs[:nl] = kf_ls_ep[cam_slots, tb.fi[lrows]]
+        l_sig[:nl] = kf_ls_sig[cam_slots, tb.fi[lrows]]
+        l_val[:nl] = True
+
+        prob = ba_mod.BAProblem(
+            T_c_w=T, pose_fixed=pose_fixed, pose_valid=pose_valid,
+            points=points, point_valid=point_valid,
+            lines_orth=np.zeros((cap_ls, 4), dtype), lines_scale=np.ones(cap_ls, dtype),
+            line_valid=line_valid,
+            p_cam=p_cam, p_lm=p_lm, p_uv=p_uv, p_sigma2=p_sig, p_valid=p_val,
+            l_cam=l_cam, l_lm=l_lm, l_sobs=l_sobs, l_eobs=l_eobs, l_sigma2=l_sig,
+            l_valid=l_val)
+        meta = dict(local_ids=local_ids, pt_ids=pt_ids, ls_ids=ls_ids, prows=prows,
+                    lrows=lrows, lines_plucker=lines_plucker)
+        return prob, meta
+
+    def _ba_landmark_ids(self, slotmask: np.ndarray, min_obs: int = 2):
+        """Landmarks with >= min_obs observations among the selected KFs."""
+        mp = self.map
+        tb = mp.pobs
+        sel = tb.valid[: tb.n] & slotmask[tb.kf[: tb.n]]
+        cnt = np.bincount(tb.lm[: tb.n][sel], minlength=mp.n_pt)
+        pt_ids = np.where(mp.pt_valid & (cnt >= min_obs))[0]
+        tb = mp.lobs
+        sel = tb.valid[: tb.n] & slotmask[tb.kf[: tb.n]]
+        cnt = np.bincount(tb.lm[: tb.n][sel], minlength=mp.n_ls)
+        ls_ids = np.where(mp.ls_valid & (cnt >= min_obs))[0]
+        if not self.cfg.use_lines:
+            ls_ids = ls_ids[:0]
+        return pt_ids, ls_ids
+
+    def build_local_ba(self):
+        """The padded numpy BAProblem over the local map, capacities
+        bucketed to powers of two of the actual size."""
+        cfg = self.cfg
+        mp = self.map
+        local = mp.local_kf_set()
+        local_ids = [k.id for k in mp.keyframes if local[k.id]][-cfg.local_ba_kf:]
+        slotmask = np.zeros(len(mp.keyframes), bool)
+        slotmask[local_ids] = True
+        pt_ids, ls_ids = self._ba_landmark_ids(slotmask)
+        if len(pt_ids) > cfg.ba_points:
+            log.warning("local BA point capacity exceeded: %d > %d "
+                        "(keeping most recent)", len(pt_ids), cfg.ba_points)
+            pt_ids = pt_ids[-cfg.ba_points:]
+        if len(ls_ids) > cfg.ba_lines:
+            log.warning("local BA line capacity exceeded: %d > %d",
+                        len(ls_ids), cfg.ba_lines)
+            ls_ids = ls_ids[-cfg.ba_lines:]
+        n_pobs = self._count_obs(mp.pobs, slotmask, mp.n_pt, pt_ids)
+        n_lobs = self._count_obs(mp.lobs, slotmask, mp.n_ls, ls_ids)
+        return self._assemble_problem(
+            local_ids, pt_ids, ls_ids,
+            min(cfg.ba_points, _pad_bucket(len(pt_ids), lo=256)),
+            min(cfg.ba_lines, _pad_bucket(len(ls_ids), lo=64)),
+            min(cfg.ba_pobs, _pad_bucket(n_pobs, lo=1024)),
+            min(cfg.ba_lobs, _pad_bucket(n_lobs, lo=256)),
+            fix_rule="local", cap_k=cfg.local_ba_kf)
+
+    @staticmethod
+    def _count_obs(table: _ObsTable, slotmask: np.ndarray, n_lm: int,
+                   lm_ids: np.ndarray) -> int:
+        """Observation rows a BA over (slotmask KFs, lm_ids) will carry."""
+        sel = np.zeros(n_lm, bool)
+        sel[lm_ids] = True
+        return int((table.valid[: table.n] & slotmask[table.kf[: table.n]]
+                    & sel[table.lm[: table.n]]).sum())
+
+
+    def _solve_local(self, prob: ba_mod.BAProblem, meta):
+        """Run the two-round BA on the device; return one f32 buffer
+        [T_c_w | points | lines as ||d||=1 Pluecker | p_active | l_active |
+        cost] and its layout."""
+        lp = meta["lines_plucker"]
+        if lp is None:
+            lp = np.zeros((prob.lines_orth.shape[0], 6), np.float32)
+        dp = ba_problem_from_numpy(prob, self.device)
+        Lw = _upload(lp, self.device)
+        scale = torch.linalg.norm(Lw, dim=-1)
+        dp = dp._replace(lines_scale=scale,
+                         lines_orth=plucker_to_orth(Lw / torch.clamp(scale, min=1e-12)[:, None]))
+        res = ba_mod.bundle_adjust(dp, self.cam, self.ba_cfg)
+        # the optimizer's 6-vector scale cancels in the ||d|| normalization
+        Lo = orth_to_plucker(res.problem.lines_orth)
+        Lo = Lo / torch.clamp(torch.linalg.norm(Lo[:, 3:], dim=-1), min=1e-12)[:, None]
+        f32 = torch.float32
+        out = torch.cat([res.problem.T_c_w.reshape(-1), res.problem.points.reshape(-1),
+                         Lo.reshape(-1), res.p_active.to(f32), res.l_active.to(f32),
+                         res.cost.to(f32)[None]])
+        lay = (prob.T_c_w.shape[0], prob.points.shape[0], prob.lines_orth.shape[0],
+               prob.p_cam.shape[0], prob.l_cam.shape[0])
+        return out, lay
+
+    @_locked
+    def local_bundle_adjustment(self, defer: bool = False):
+        """Two-round chi^2-gated BA over the local map and its write-back
+        (:6119-6319).  ``defer=True`` launches the solve and postpones the
+        copy and write-back to ``flush_ba()`` or the next keyframe's
+        association copy (the reference's write-back lag, :2160)."""
+        if len(self.map.keyframes) < 2:
+            return None
+        self.flush_ba()  # at most one solve in flight
+        prob, meta = self.build_local_ba()
+        out, lay = self._solve_local(prob, meta)
+        if defer:
+            with self._ba_lock:
+                self._ba_pending = (out, lay, meta)
+            return None
+        return self._finish_local_ba(out.cpu().numpy(), lay, meta)
+
+    def _pose_jump(self, local_ids, T_c_w_new) -> float:
+        """Largest pose-translation change a BA write-back would apply."""
+        mp = self.map
+        old = np.stack([mp.keyframes[k].T_w_k[:3, 3] for k in local_ids])
+        new = np.stack([np.linalg.inv(
+            np.asarray(T_c_w_new[s], np.float64))[:3, 3]
+            for s in range(len(local_ids))])
+        d = np.linalg.norm(new - old, axis=1)
+        return float(d.max()) if len(d) else 0.0
+
+    def _finish_local_ba(self, out: np.ndarray, lay, meta) -> LocalBAResult:
+        K, P, L, Np, Nl = lay
+        sizes = np.cumsum([K * 16, P * 3, L * 6, Np, Nl])
+        T, points, lines, pa, la, cost = np.split(out, sizes)
+        T, points, lines = T.reshape(K, 4, 4), points.reshape(P, 3), lines.reshape(L, 6)
+        p_active, l_active = pa > 0.5, la > 0.5
+        cost = float(cost[0])
+        mp = self.map
+        jump = self._pose_jump(meta["local_ids"], T)
+        if self.cfg.lba_max_jump > 0 and (
+                not np.isfinite(jump) or jump > self.cfg.lba_max_jump):
+            log.warning("local BA discarded: max pose jump %.2f m exceeds "
+                        "lba_max_jump=%.2f (solver divergence guard)",
+                        jump, self.cfg.lba_max_jump)
+            return LocalBAResult(T, points, p_active, l_active, cost)
+        for sl, kfid in enumerate(meta["local_ids"]):
+            mp.keyframes[kfid].T_w_k = np.linalg.inv(np.asarray(T[sl], np.float64))
+        self._write_back_landmarks(points, lines, None, p_active, l_active, meta)
+        self.n_local_ba_applied += 1
+        return LocalBAResult(T, points, p_active, l_active, cost)
+
+    @_locked
+    def flush_ba(self):
+        """Apply a deferred local-BA result, if one is in flight."""
+        with self._ba_lock:
+            pending, self._ba_pending = self._ba_pending, None
+        if pending is not None:
+            out, lay, meta = pending
+            self._finish_local_ba(out.cpu().numpy(), lay, meta)
+
+    def _fetch_with_pending(self, out: torch.Tensor) -> np.ndarray:
+        """Copy ``out`` to the host together with any deferred BA result
+        (one copy, one sync)."""
+        with self._ba_lock:
+            pending, self._ba_pending = self._ba_pending, None
+        if pending is None:
+            return out.cpu().numpy()
+        pout, lay, meta = pending
+        both = torch.cat([pout, out]).cpu().numpy()
+        self._finish_local_ba(both[: len(pout)], lay, meta)
+        return both[len(pout):]
+
+    @_locked
+    def global_bundle_adjustment(self):
+        """GBA over every active keyframe and every landmark, tiled in
+        fixed-shape landmark chunks so nothing is truncated
+        (globalBundleAdjustment :3022-3126)."""
+        cfg = self.cfg
+        mp = self.map
+        if len(mp.keyframes) < 2:
+            return None
+        self.flush_ba()
+        local_ids = [k.id for k in mp.keyframes if k.active]
+        slotmask = np.zeros(len(mp.keyframes), bool)
+        slotmask[local_ids] = True
+        pt_ids, ls_ids = self._ba_landmark_ids(slotmask)
+        cap_p, cap_l = cfg.ba_points, cfg.ba_lines
+        n_chunks = max(1, -(-len(pt_ids) // cap_p), -(-len(ls_ids) // cap_l))
+        probs, metas = [], []
+        for c in range(n_chunks):
+            prob, meta = self._assemble_problem(
+                local_ids, pt_ids[c * cap_p: (c + 1) * cap_p],
+                ls_ids[c * cap_l: (c + 1) * cap_l], cap_p, cap_l,
+                cfg.ba_pobs, cfg.ba_lobs, fix_rule="kf0",
+                cap_k=_pad_bucket(len(local_ids), lo=8))
+            probs.append(_orth_from_plucker_meta(prob, meta))
+            metas.append(meta)
+        log.info("GBA: %d KFs, %d points + %d lines in %d chunk(s)",
+                 len(local_ids), len(pt_ids), len(ls_ids), n_chunks)
+        # pose leaves are shared, the rest gain a leading chunk axis
+        stacked = ba_mod.BAProblem(**{
+            k: v if k in ("T_c_w", "pose_fixed", "pose_valid")
+            else np.stack([getattr(p, k) for p in probs])
+            for k, v in probs[0]._asdict().items() if v is not None})
+        res = ba_mod.bundle_adjust_chunked(ba_problem_from_numpy(stacked, self.device),
+                                           self.cam, self.ba_cfg)
+        f32 = torch.float32
+        out = torch.cat([res.problem.T_c_w.reshape(-1), res.problem.points.reshape(-1),
+                         res.problem.lines_orth.reshape(-1),
+                         res.p_active.to(f32).reshape(-1),
+                         res.l_active.to(f32).reshape(-1)]).cpu().numpy()
+        K, C = stacked.T_c_w.shape[0], n_chunks
+        sizes = np.cumsum([K * 16, C * cap_p * 3, C * cap_l * 4, stacked.p_cam.size])
+        T_c_w, points, orth, pa, la = np.split(out, sizes)
+        T_c_w = T_c_w.reshape(K, 4, 4)
+        points, orth = points.reshape(C, cap_p, 3), orth.reshape(C, cap_l, 4)
+        p_active = pa.reshape(stacked.p_cam.shape) > 0.5
+        l_active = la.reshape(stacked.l_cam.shape) > 0.5
+        jump = self._pose_jump(local_ids, T_c_w)
+        if self.cfg.gba_max_jump > 0 and (
+                not np.isfinite(jump) or jump > self.cfg.gba_max_jump):
+            log.warning("GBA discarded: max pose jump %.2f m exceeds "
+                        "gba_max_jump=%.2f (solver divergence guard)",
+                        jump, self.cfg.gba_max_jump)
+            return res
+        for s, kfid in enumerate(local_ids):
+            mp.keyframes[kfid].T_w_k = np.linalg.inv(np.asarray(T_c_w[s], np.float64))
+        for c, meta in enumerate(metas):
+            self._write_back_landmarks(points[c], orth[c], stacked.lines_scale[c],
+                                       p_active[c], l_active[c], meta)
+        return res
+
+    def _write_back_landmarks(self, points, lines, scale, p_active, l_active, meta):
+        """Optimized landmarks into the map; lines come as ||d||=1 Pluecker
+        (N, 6) or as orth coordinates (N, 4) with their 6-vector scales."""
+        mp = self.map
+        pt_ids, ls_ids = meta["pt_ids"], meta["ls_ids"]
+        if len(pt_ids):
+            mp.pt_w[pt_ids] = points[: len(pt_ids)]
+        if len(ls_ids):
+            nls = len(ls_ids)
+            if lines.shape[-1] == 6:
+                mp.ls_w[ls_ids] = lines[:nls]
+            else:
+                Lws = orth_to_plucker(torch.from_numpy(np.ascontiguousarray(lines[:nls]))
+                                      ).numpy() * np.asarray(scale[:nls])[:, None]
+                mp.ls_w[ls_ids] = _np_normalize_plucker(Lws)
+            # snap the stored world endpoints onto the optimized line: Map2KF
+            # gates on projected ls_epw (:799-921)
+            Lw = mp.ls_w[ls_ids]
+            nvec, d = Lw[:, :3], Lw[:, 3:]
+            p0 = np.cross(d, nvec)       # closest line point to the origin
+            ep = mp.ls_epw[ls_ids]       # (n, 2, 3)
+            t = np.einsum("nkj,nj->nk", ep - p0[:, None], d)
+            snapped = p0[:, None] + t[..., None] * d[:, None]
+            ok = np.isfinite(snapped).all(axis=(1, 2))
+            mp.ls_epw[ls_ids[ok]] = snapped[ok]
+        # prune gated-out observations (:6154-6293) with covis decrements
+        prows, lrows = meta["prows"], meta["lrows"]
+        self._prune_obs(prows[~p_active[: len(prows)]], points_table=True)
+        self._prune_obs(lrows[~l_active[: len(lrows)]], points_table=False)
+
+    def _prune_obs(self, rows: np.ndarray, points_table: bool):
+        """Remove observations by obs-table row, resetting the per-KF
+        feature->landmark link (links batched per keyframe)."""
+        mp = self.map
+        tb = mp.pobs if points_table else mp.lobs
+        rows = np.asarray(rows, np.int64)
+        if len(rows):
+            live = rows[tb.valid[rows]]
+            for kfid in np.unique(tb.kf[live]).tolist():
+                fis = tb.fi[live[tb.kf[live] == kfid]]
+                if points_table:
+                    mp.keyframes[kfid].pt_lm[fis] = -1
+                else:
+                    mp.keyframes[kfid].ls_lm[fis] = -1
+        if points_table:
+            mp.remove_point_obs_rows(rows)
+        else:
+            mp.remove_line_obs_rows(rows)
+
+    # -- culling -----------------------------------------------------------
+
+    @_locked
+    def cull_landmarks(self):
+        """removeBadMapLandmarks (:3732): kill non-local landmarks older
+        than cull_age KFs with fewer than min_lm_obs observations."""
+        mp = self.map
+        newest = len(mp.keyframes) - 1
+        dead = (mp.pt_valid & (newest - mp.pt_last_kf > self.cfg.cull_age)
+                & (mp.pt_nobs < self.cfg.min_lm_obs))
+        mp.pt_valid[dead] = False
+        dead = (mp.ls_valid & (newest - mp.ls_last_kf > self.cfg.cull_age)
+                & (mp.ls_nobs < self.cfg.min_lm_obs))
+        mp.ls_valid[dead] = False
+
+    def refresh_landmark_descriptors(self, max_obs: int = 24):
+        """Median-descriptor election (mapFeatures.cpp
+        updateAverageDescDir :52-140): each landmark's representative
+        descriptor becomes the observation descriptor with minimal summed
+        Hamming distance to the others.  Fully batched: one gather over
+        the stacked per-KF descriptor tables + one padded pairwise
+        popcount per modality, no per-landmark Python loops.  Election
+        considers the newest ``max_obs`` observations per landmark (long
+        tracks saturate well before that)."""
+        mp = self.map
+        for table, valid, nobs, lm_desc, attr in (
+                (mp.pobs, mp.pt_valid, mp.pt_nobs, mp.pt_desc, "pt_desc"),
+                (mp.lobs, mp.ls_valid, mp.ls_nobs, mp.ls_desc, "ls_desc")):
+            lms = np.where(valid & (nobs >= 3))[0]
+            if not len(lms):
+                continue
+            kf_desc = np.stack([getattr(kf, attr)
+                                for kf in mp.keyframes])  # (K, N, 8)
+            L = len(lms)
+            M = min(max_obs, int(nobs[lms].max()))
+            # newest M live rows per landmark, gathered from the sorted
+            # index (insertion order within a landmark)
+            order, lo, hi = table.group_slices(lms)
+            cnt = np.minimum(hi - lo, M)
+            starts = hi - cnt
+            idx = starts[:, None] + np.arange(M)[None, :]
+            idx = np.clip(idx, 0, max(len(order) - 1, 0))
+            rows = order[idx] if len(order) else np.zeros((L, M), np.int64)
+            descs = kf_desc[table.kf[rows], table.fi[rows]]  # (L, M, 8)
+            x = np.bitwise_xor(descs[:, :, None], descs[:, None, :]).view(np.uint32)
+            D = _popcount32(x).sum(-1).astype(np.int32)        # (L, M, M)
+            pad = np.arange(M)[None] >= cnt[:, None]          # (L, M)
+            D[pad[:, :, None] | pad[:, None, :]] = 0
+            best = (D.sum(-1) + np.where(pad, 1 << 20, 0)).argmin(-1)
+            lm_desc[lms] = descs[np.arange(L), best]
+
+    @_locked
+    def cull_redundant_keyframes(self, max_common: float = 0.9):
+        """removeRedundantKFs (:3899-4047): deactivate keyframes whose
+        tracked landmarks are >= max_common shared with other keyframes;
+        their observations are dropped from the landmark tables (keyframe
+        poses stay, flagged inactive, excluded from local maps and BA) and
+        landmarks they anchored are rebased onto a surviving observer
+        (drop_keyframe_obs).  KF0 and the two newest KFs are never culled.
+
+        One table pass total: the active-observer count per landmark is
+        built once and updated incrementally as KFs fall, and each KF's
+        own rows come from a kf-sorted grouping — O(K*table) in r3,
+        O(table log table + K*own) now (weak #4)."""
+        mp = self.map
+        k = len(mp.keyframes)
+        removed = []
+        active = np.asarray([r.active for r in mp.keyframes])
+        tb = mp.pobs
+        sel = tb.valid[: tb.n] & active[tb.kf[: tb.n]]
+        cnt = np.bincount(tb.lm[: tb.n][sel], minlength=mp.n_pt)
+        rsel = np.where(sel)[0]
+        by_kf = rsel[np.argsort(tb.kf[rsel], kind="stable")]
+        kf_sorted = tb.kf[by_kf]
+        for kf in mp.keyframes[1:max(1, k - 2)]:
+            if not kf.active:
+                continue
+            lm_ids = kf.pt_lm[(kf.pt_lm >= 0)]
+            lm_ids = lm_ids[mp.pt_valid[lm_ids]]
+            if len(lm_ids) < 10:
+                continue
+            a = np.searchsorted(kf_sorted, kf.id, "left")
+            b = np.searchsorted(kf_sorted, kf.id, "right")
+            own_lms = np.sort(tb.lm[by_kf[a:b]])
+            # count of OTHER active observers = total minus own rows
+            oc = (np.searchsorted(own_lms, lm_ids, "right")
+                  - np.searchsorted(own_lms, lm_ids, "left"))
+            shared = int(((cnt[lm_ids] - oc) >= 2).sum())
+            if shared / len(lm_ids) >= max_common:
+                kf.active = False
+                active[kf.id] = False
+                removed.append(kf.id)
+                np.add.at(cnt, own_lms, -1)
+                mp.drop_keyframe_obs(kf.id)
+        return removed
+
+    # -- trajectory export -------------------------------------------------
+
+    @_locked
+    def keyframe_trajectory(self, include_inactive: bool = True):
+        self.flush_ba()
+        return [kf.T_w_k for kf in self.map.keyframes
+                if include_inactive or kf.active]

@@ -1,7 +1,7 @@
 """State carried across from the JAX package, as numpy arrays.
 
 There are no learned weights.  What crosses over is the camera, the
-feature sets and the tracking state (``VOState``); the descriptor tables
+feature sets, the tracking state (``VOState``) and BA problems; the descriptor tables
 are re-derived by the same numpy code in ``ops/orb.py``, ``ops/lbd.py``
 and ``ops/image.py``.  Inputs are numpy arrays, dicts of them, or
 NamedTuples of them (e.g. ``jax.tree.map(np.asarray, state)`` on the JAX
@@ -16,6 +16,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from .backend.ba import BAProblem
 from .core.camera import StereoCamera
 from .frontend.features import LineSet, PointSet, StereoFeatures
 from .vo import VOState
@@ -66,3 +67,28 @@ def vo_state_from_numpy(state, device) -> VOState:
            if k != "features"}
     out["fast_th"] = out["fast_th"].to(torch.float32)
     return VOState(features=stereo_features_from_numpy(f["features"], device), **out)
+
+
+def stereo_features_to_numpy(feats: StereoFeatures) -> dict:
+    """``StereoFeatures`` -> {"points": {...}, "lines": {...}} of numpy, the
+    descriptor words as uint32 (the JAX package's layout)."""
+    def side(x):
+        out = {k: v.detach().cpu().numpy() for k, v in x._asdict().items()}
+        out["desc"] = out["desc"].view(np.uint32)
+        return out
+    return {"points": side(feats.points), "lines": side(feats.lines)}
+
+
+def ba_problem_from_numpy(prob, device) -> BAProblem:
+    """``BAProblem`` on ``device`` from a mapping or NamedTuple of numpy
+    arrays (absent endpoint fields may be None); index fields become int64."""
+    f = _fields(prob)
+    out = {}
+    for k in BAProblem._fields:
+        v = f.get(k)
+        if v is not None:
+            v = np.asarray(v)
+            v = tensor_from_numpy(v.astype(np.int64) if v.dtype.kind in "iu" else v,
+                                  device)
+        out[k] = v
+    return BAProblem(**out)

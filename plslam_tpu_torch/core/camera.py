@@ -51,6 +51,18 @@ class StereoCamera(NamedTuple):
                             depth * (uv[..., 1] - self.cy) / self.fy,
                             depth], dim=-1)
 
+    def apply_plucker_K(self, v: torch.Tensor, dim: int = -1) -> torch.Tensor:
+        """K_L @ v along ``dim`` (size 3), from the scalar entries: a K_L
+        tensor would be a host-to-device copy on every call."""
+        (k00, _, _), (_, k11, _), (k20, k21, k22) = self.plucker_K
+        v0, v1, v2 = v.unbind(dim)
+        return torch.stack([k00 * v0, k11 * v1, k20 * v0 + k21 * v1 + k22 * v2],
+                           dim=dim)
+
+    def project_line(self, L_cam: torch.Tensor) -> torch.Tensor:
+        """Camera-frame Pluecker line -> image line l = K_L n (homogeneous)."""
+        return self.apply_plucker_K(L_cam[..., :3])
+
     def back_project_unit(self, uv: torch.Tensor) -> torch.Tensor:
         return torch.stack([(uv[..., 0] - self.cx) / self.fx,
                             (uv[..., 1] - self.cy) / self.fy,

@@ -71,14 +71,6 @@ def point_residuals(DT: torch.Tensor, pts: TrackedPoints, cam: StereoCamera):
     return r, torch.cat([c, _cross(P_, c)], dim=-1)
 
 
-def _K_L_apply(K, n):
-    """l = K_L @ n for (N, 3) n."""
-    return torch.stack([K[0][0] * n[..., 0],
-                        K[1][1] * n[..., 1],
-                        K[2][0] * n[..., 0] + K[2][1] * n[..., 1] + K[2][2] * n[..., 2]],
-                       dim=-1)
-
-
 def _K_L_T_apply(K, v):
     """u = K_L^T @ v for (N, 3) v."""
     return torch.stack([K[0][0] * v[..., 0] + K[2][0] * v[..., 2],
@@ -93,7 +85,7 @@ def line_residuals_plucker(DT: torch.Tensor, ls: TrackedLines, cam: StereoCamera
     Lc = transform_plucker(DT, ls.NDc)
     n_c, d_c = Lc[..., :3], Lc[..., 3:]
     K = cam.plucker_K
-    l = _K_L_apply(K, n_c)
+    l = cam.apply_plucker_K(n_c)
     lx, ly, lz = l[..., 0], l[..., 1], l[..., 2]
     fm = 1.0 / torch.sqrt(torch.clamp(lx * lx + ly * ly, min=HOMOG_TH))
     a0, b0 = ls.sobs[..., 0], ls.sobs[..., 1]

@@ -22,6 +22,7 @@ def fast_score_nms_plain(imgs: torch.Tensor, thr: torch.Tensor):
     return raw, nms3x3(raw)
 
 
+@cuda_lib.counted
 def fast_score_nms_batch(imgs: torch.Tensor, thr: torch.Tensor):
     """(raw, nms) FAST-9 maps of a (B, H, W) f32 stack; thr is a (B,) f32
     per-image threshold that stays on the device."""
@@ -42,8 +43,6 @@ def fast_score_nms_batch(imgs: torch.Tensor, thr: torch.Tensor):
             imgs.data_ptr(), thr.data_ptr(), raw.data_ptr(), nms.data_ptr(),
             B, H, W, cuda_lib.stream_ptr(imgs.device))
     cuda_lib.check(err, "fast_score_nms_batch")
-    fast_score_nms_batch.launches += 1
+    fast_score_nms_batch.count()
     return raw, nms
 
-
-fast_score_nms_batch.launches = 0

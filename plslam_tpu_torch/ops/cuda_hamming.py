@@ -17,6 +17,7 @@ from .descriptors import DESC_WORDS, hamming_distance_matrix
 hamming_plain = hamming_distance_matrix
 
 
+@cuda_lib.counted
 def hamming_distance_matrix_cuda(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
     """(N1, 8) x (N2, 8) int32 -> (N1, N2) int32 Hamming distances."""
     if d1.dim() != 2 or d2.dim() != 2 or d1.shape[1] != DESC_WORDS \
@@ -35,8 +36,6 @@ def hamming_distance_matrix_cuda(d1: torch.Tensor, d2: torch.Tensor) -> torch.Te
         err = lib.plslam_hamming(d1.data_ptr(), d2.data_ptr(), out.data_ptr(),
                                  n1, n2, cuda_lib.stream_ptr(d1.device))
     cuda_lib.check(err, "hamming")
-    hamming_distance_matrix_cuda.launches += 1
+    hamming_distance_matrix_cuda.count()
     return out
 
-
-hamming_distance_matrix_cuda.launches = 0

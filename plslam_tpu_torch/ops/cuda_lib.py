@@ -17,6 +17,7 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -120,3 +121,40 @@ def require_cuda(what: str, *tensors: torch.Tensor) -> None:
 
 def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+class counted:
+    """Decorator for a kernel wrapper: the wrapper calls ``count()`` where
+    it launches its kernel, and the launches are counted under a lock,
+    keyed by the launching thread's name (the tracker and the mapping
+    worker launch the same kernels).  ``launches`` is the total; assigning
+    0 to it resets every count."""
+
+    def __init__(self, fn):
+        functools.update_wrapper(self, fn)
+        self._lock = threading.Lock()
+        self._by_thread: dict[str, int] = {}
+
+    def __call__(self, *args, **kwargs):
+        return self.__wrapped__(*args, **kwargs)
+
+    def count(self) -> None:
+        name = threading.current_thread().name
+        with self._lock:
+            self._by_thread[name] = self._by_thread.get(name, 0) + 1
+
+    def launches_by_thread(self) -> dict[str, int]:
+        with self._lock:
+            return dict(self._by_thread)
+
+    @property
+    def launches(self) -> int:
+        with self._lock:
+            return sum(self._by_thread.values())
+
+    @launches.setter
+    def launches(self, value: int) -> None:
+        if value != 0:
+            raise ValueError("launch counts can only be reset to 0")
+        with self._lock:
+            self._by_thread.clear()

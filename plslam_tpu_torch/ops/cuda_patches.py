@@ -28,6 +28,7 @@ def gather_patches_plain(imgs: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
     return padded[bi, ys[..., :, None], xs[..., None, :]]
 
 
+@cuda_lib.counted
 def gather_patches_batch(imgs: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
                          patch: int) -> torch.Tensor:
     """(B, N, P, P) patches of a (B, H, W) f32 stack at (B, N) int32 corners."""
@@ -51,8 +52,6 @@ def gather_patches_batch(imgs: torch.Tensor, y0: torch.Tensor, x0: torch.Tensor,
             imgs.data_ptr(), y0.data_ptr(), x0.data_ptr(), out.data_ptr(),
             B, H, W, N, patch, cuda_lib.stream_ptr(imgs.device))
     cuda_lib.check(err, "gather_patches_batch")
-    gather_patches_batch.launches += 1
+    gather_patches_batch.count()
     return out
 
-
-gather_patches_batch.launches = 0

@@ -6,10 +6,24 @@ from __future__ import annotations
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 SMALL_SCENE = dict(n_points=80, n_lines=12, seed=0, width=188, height=120,
                    fx=100.0, fy=100.0, cx=94.0, cy=60.0)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """One intra-op thread for a module's tests: the suite runs several
+    worker processes, and the mapping tests run two threads of their own,
+    so torch's per-process pool oversubscribes the cores (measured: the
+    threaded pipeline run went from 12 s alone to 260 s under 6 workers).
+    Import it into a test module to use it."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def to_np(tree):

@@ -1,0 +1,183 @@
+"""The port's PLSLAM (tracking, mapping worker thread, local BA, chunked
+GBA) on test_pipeline_threads' synthetic scene (376x240, 8 frames, a
+keyframe nearly every frame): the threaded and the inline mapper build the
+same map, the keyframe ATE stays under max(2x the JAX package's, 0.01 m),
+errors on the worker surface at finish(), and what is not ported raises."""
+
+import json
+import threading
+
+import numpy as np
+import pytest
+
+from _map_fixtures import World, lateral_poses, make_camera, render_features
+from plslam_tpu.io.synthetic import SyntheticScene, circular_trajectory
+from plslam_tpu.io.trajectory import ate_rmse
+from plslam_tpu_torch.backend.mapping import MapConfig
+from plslam_tpu_torch.config import PLSLAMConfig
+from plslam_tpu_torch.convert import stereo_features_from_numpy
+from plslam_tpu_torch.core.camera import StereoCamera
+from plslam_tpu_torch.ops import cuda_hamming
+from plslam_tpu_torch.pipeline import PLSLAM
+
+from test_torch_helpers import one_torch_thread  # noqa: F401
+
+N_FRAMES = 8
+# Keyframe ATE (m, aligned) of the JAX package's PLSLAM on the same 8
+# frames with finish(run_gba=True), measured once on CPU
+# (JAX_PLATFORMS=cpu): SyntheticScene(seed=7), PLSLAMConfig(orb_nfeatures=512,
+# lsd_nfeatures=128, orb_fast_th=15, min_entropy_ratio=0.99),
+# MapConfig(local_ba_kf=8, ba_points=2048, ba_lines=256, ba_pobs=8192,
+# ba_lobs=2048), circular_trajectory(8, step_t=0.12, step_r=0.015),
+# keyframes matched to ground truth by timestamp, ate_rmse(align=True).
+JAX_CPU_ATE = 0.02381158349513792
+MAP_CFG = dict(local_ba_kf=8, ba_points=2048, ba_lines=256, ba_pobs=8192, ba_lobs=2048)
+
+
+def _cam(scene):
+    return StereoCamera.create(scene.fx, scene.fy, scene.cx, scene.cy, scene.b,
+                               width=scene.width, height=scene.height)
+
+
+def _run(multithread: bool):
+    scene = SyntheticScene(seed=7)
+    cfg = PLSLAMConfig(orb_nfeatures=512, lsd_nfeatures=128, orb_fast_th=15,
+                       min_entropy_ratio=0.99, multithread_slam=multithread)
+    slam = PLSLAM(_cam(scene), cfg, MapConfig(**MAP_CFG), device="cpu")
+    poses = circular_trajectory(N_FRAMES, step_t=0.12, step_r=0.015)
+    for i, T in enumerate(poses):
+        slam.process(*scene.render_stereo(T), timestamp=0.05 * i)
+    traj = slam.finish(run_gba=True)
+    return slam, poses, traj
+
+
+@pytest.fixture(scope="module")
+def both_runs():
+    return _run(False), _run(True)
+
+
+def test_threaded_and_inline_build_the_same_map(both_runs):
+    (s0, _, t0), (s1, _, t1) = both_runs
+    m0, m1 = s0.mapper.map, s1.mapper.map
+    assert len(m0.keyframes) == len(m1.keyframes) >= 3
+    for a, b in ((m0.pobs, m1.pobs), (m0.lobs, m1.lobs)):
+        assert a.n == b.n
+        for f in ("valid", "lm", "kf", "fi"):
+            np.testing.assert_array_equal(getattr(a, f)[: a.n], getattr(b, f)[: b.n])
+    np.testing.assert_array_equal(m0.covis, m1.covis)
+    np.testing.assert_allclose(np.stack(t0), np.stack(t1), rtol=0, atol=1e-6)
+    assert s1._map_thread is None and s1._map_errors == []
+
+
+def test_keyframe_ate_against_jax(both_runs):
+    _, (slam, poses, traj) = both_runs
+    assert all(lg.good for lg in slam.logs)
+    assert slam.mapper.n_local_ba_applied >= 1
+    gt = np.stack([poses[int(round(t / 0.05))][:3, 3] for t in slam.kf_timestamps])
+    ate = ate_rmse(np.stack([T[:3, 3] for T in traj]), gt, align=True)
+    assert ate < max(2.0 * JAX_CPU_ATE, 0.01), (ate, JAX_CPU_ATE)
+
+
+def test_exports(both_runs, tmp_path):
+    _, (slam, _, _) = both_runs
+    slam.save_trajectory_tum(str(tmp_path / "traj.txt"))
+    lines = (tmp_path / "traj.txt").read_text().strip().splitlines()
+    assert len(lines) == len(slam.mapper.map.keyframes)
+    assert all(len(ln.split()) == 8 for ln in lines)
+    slam.save_logs_jsonl(str(tmp_path / "log.jsonl"))
+    logs = [json.loads(ln) for ln in (tmp_path / "log.jsonl").read_text().splitlines()]
+    assert len(logs) == N_FRAMES - 1 and all(lg["good"] for lg in logs)
+
+
+def _feature_slam(**cfg_kw):
+    cam = make_camera()
+    world = World(n_pts=120, n_ls=12)
+    poses = lateral_poses(4, step=0.04)
+    feats = [stereo_features_from_numpy(render_features(world, T, cam), "cpu")
+             for T in poses]
+    tcam = StereoCamera.create(458.0, 457.0, 376.0, 240.0, 0.11)
+    return PLSLAM(tcam, PLSLAMConfig(**cfg_kw), MapConfig(**MAP_CFG), device="cpu"), \
+        poses, feats
+
+
+def test_worker_error_surfaces_at_finish():
+    slam, poses, feats = _feature_slam()
+    assert slam._map_thread.name == "plslam-mapper"
+
+    def boom(*a, **k):
+        raise RuntimeError("mapping failed")
+
+    slam.mapper.add_keyframe = boom
+    slam.insert_keyframe_features(poses[0], feats[0])
+    slam.insert_keyframe_features(poses[1], feats[1], timestamp=0.1)
+    with pytest.raises(RuntimeError, match="mapping failed"):
+        slam.finish(run_gba=False)
+
+
+def test_feature_replay_through_the_worker():
+    slam, poses, feats = _feature_slam()
+    for i, (T, f) in enumerate(zip(poses, feats)):
+        slam.insert_keyframe_features(T, f, timestamp=0.1 * i)
+    slam.wait_until_idle()
+    assert len(slam.mapper.map.keyframes) == len(poses)
+    traj = slam.finish(run_gba=True)
+    gt = np.stack([T[:3, 3] for T in poses])
+    assert ate_rmse(np.stack([T[:3, 3] for T in traj]), gt, align=False) < 0.01
+    # CPU tensors never reach a kernel, on any thread
+    assert cuda_hamming.hamming_distance_matrix_cuda.launches == 0
+
+
+def test_plucker_with_loop_closure_raises():
+    cam = StereoCamera.create(200.0, 200.0, 160.0, 120.0, 0.11)
+    with pytest.raises(ValueError):
+        PLSLAM(cam, PLSLAMConfig(use_line_plucker=True, use_loop_closure=True), device="cpu")
+
+
+@pytest.mark.parametrize("cfg_kw", [
+    dict(use_line_plucker=False), dict(has_refinement=True),
+    dict(use_line_plucker=False, use_loop_closure=True), dict(overlay_every=1),
+    dict(viz_every_kf=1), dict(checkpoint_every_kf=1)])
+def test_not_ported_raises(cfg_kw):
+    cam = StereoCamera.create(200.0, 200.0, 160.0, 120.0, 0.11)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PLSLAM(cam, PLSLAMConfig(multithread_slam=False, **cfg_kw), device="cpu")
+
+
+def test_distributed_gba_and_checkpoints_raise():
+    slam, _, _ = _feature_slam(multithread_slam=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        slam.finish(mesh=object())
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        slam.save_checkpoint("map.npz")
+
+
+def test_launch_counter_is_thread_safe():
+    """The launch counter's total and its per-thread counts stay exact
+    under concurrent counting from several threads, four of which share
+    one name (and so one count: a read-modify-write without the lock
+    would lose updates)."""
+    import sys
+
+    fn = cuda_hamming.hamming_distance_matrix_cuda
+    fn.launches = 0
+    n_threads, n_each = 8, 2000
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=lambda: [fn.count() for _ in range(n_each)],
+                                    name="shared" if i < 4 else f"counter-{i}")
+                   for i in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+    finally:
+        sys.setswitchinterval(old)
+    assert fn.launches == n_threads * n_each
+    want = {f"counter-{i}": n_each for i in range(4, n_threads)}
+    assert fn.launches_by_thread() == dict(want, shared=4 * n_each)
+    fn.launches = 0
+    assert fn.launches == 0 and fn.launches_by_thread() == {}
+    with pytest.raises(ValueError):
+        fn.launches = 3
