@@ -17,12 +17,26 @@ Phases, each reported on its own lines:
      poses, keyframe ATE under the floor, the Hamming kernel launched from
      the mapping thread;
   6. local BA: LM iterations/s of ``lm_rounds`` (f32, K=8, P=512, L=64);
-  7. the kernel summary as one JSON line, then the result as the last line.
-Any failure raises and exits non-zero.
+  7. endpoint SLAM from images: phase 5's configuration with endpoint
+     lines, loop closure (the shipped DBoW2 vocabularies) and the keyframe
+     pose refinement; every frame good, >= 8 keyframes, a local BA written
+     back, every keyframe BoW-encoded, no loop (20 frames lie under
+     ``lc_kf_dist``), keyframe ATE under the floor, the Hamming kernel
+     launched from the mapping thread;
+  8. loop closure at reference scale: the 156-keyframe ring replay of
+     tests/test_scale_e2e.py through ``insert_keyframe_features`` (drifted
+     odometry, ``lc_kf_dist=50``, online vocabulary): a closure against
+     the KF-0 region, no false loop, ATE and closure-keyframe error below
+     the odometry's, real fusion, a multi-chunk endpoint GBA at finish, the
+     Hamming kernel launched from the loop-closure thread;
+then the summary lines, the kernel summary as one JSON line, and the
+result as the last line.  Any failure raises and exits non-zero.
 """
 
 import functools
 import json
+import logging
+import os
 import subprocess
 import sys
 import time
@@ -40,7 +54,8 @@ N_FRAMES = 20
 
 # Keyframe ATE (m, Umeyama-aligned, keyframes matched to ground truth by
 # timestamp) of the JAX package's PLSLAM on the SLAM phase's 20 frames,
-# run on CPU (command in PERF.md); the port must stay within 2x of it.
+# run on CPU (scripts/jax_slam_reference.py slam); the port must stay
+# within 2x of it.
 JAX_CPU_SLAM_ATE = 0.013965862188961113
 SLAM_ATE_FLOOR = max(2.0 * JAX_CPU_SLAM_ATE, 0.01)
 SLAM_WARMUP = 4
@@ -49,6 +64,18 @@ LBA_REPS = 5
 LM_ITERS = 10
 LM_REPS = 5
 MAPPER_THREAD = "plslam-mapper"
+LOOP_THREAD = "plslam-loopcloser"
+CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+
+# Keyframe ATE (m, aligned as in phase 5) of the JAX package's PLSLAM at
+# phase 7's configuration (endpoint lines, loop closure, refinement) on the
+# same 20 frames, run on CPU (scripts/jax_slam_reference.py endpoint).
+JAX_CPU_EP_ATE = 0.032678879923612035
+EP_ATE_FLOOR = max(2.0 * JAX_CPU_EP_ATE, 0.01)
+
+# Phase 8: tests/test_scale_e2e.py's scenario
+RING_KF = 156          # one revolution + a 16-keyframe revisit overlap
+RING_REVISIT = 134     # keyframes from here overlap the KF-0 sector
 TIMING_REPS = 25
 TIMING_WARMUP = 3
 
@@ -137,10 +164,11 @@ def phase_kernels(dev, levels, scene_imgs, card):
                        max_abs_err=max(errs), ms=ms, plain_ms=plain_ms))
 
     # Hamming: stereo + f2f, points 1200x1200 and lines 256x256 (2 each per
-    # VO frame); Map2KF against a 2048-candidate local map (SLAM path,
-    # timed apart)
+    # VO frame, summed into ms); timed apart: Map2KF against a
+    # 2048-candidate local map (SLAM paths) and the loop verification of
+    # two ring keyframes, points 160x160 and lines 24x24 (loop path)
     errs, ms, plain_ms = [], 0.0, 0.0
-    for n1, n2 in ((1200, 1200), (256, 256), (2048, 1200)):
+    for n1, n2 in ((1200, 1200), (256, 256), (2048, 1200), (160, 160), (24, 24)):
         d1 = torch.randint(-2**31, 2**31, (n1, 8), generator=gen, dtype=torch.int64)
         d2 = torch.randint(-2**31, 2**31, (n2, 8), generator=gen, dtype=torch.int64)
         d1, d2 = d1.to(torch.int32).to(dev), d2.to(torch.int32).to(dev)
@@ -149,7 +177,7 @@ def phase_kernels(dev, levels, scene_imgs, card):
         errs.append(check_equal(f"hamming {n1}x{n2}", got, want))
         t = median_ms(lambda: cuda_hamming.hamming_distance_matrix_cuda(d1, d2))
         tp = median_ms(lambda: cuda_hamming.hamming_plain(d1, d2))
-        if n1 == n2:
+        if n1 in (1200, 256) and n1 == n2:
             ms, plain_ms = ms + 2 * t, plain_ms + 2 * tp
         say(f"kernel hamming {n1}x{n2}: exact; {t:.4f} ms vs plain {tp:.4f} ms on {card}")
     report.append(dict(name="hamming_distance_matrix_cuda", route="cuda",
@@ -400,6 +428,313 @@ def phase_local_ba(dev, smi):
     return ips
 
 
+def phase_endpoint_slam(dev, scene, smi):
+    """PLSLAM with endpoint lines, loop closure and the keyframe refinement
+    at phase 5's configuration."""
+    from plslam_tpu_torch.backend.mapping import MapConfig
+    from plslam_tpu_torch.config import PLSLAMConfig
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.io import ate_rmse, circular_trajectory
+    from plslam_tpu_torch.pipeline import PLSLAM
+
+    cam = StereoCamera.create(scene.fx, scene.fy, scene.cx, scene.cy, scene.b,
+                              width=scene.width, height=scene.height)
+    poses = circular_trajectory(SLAM_WARMUP + SLAM_FRAMES, step_t=0.05)
+    frames = [tuple(torch.from_numpy(x).to(dev) for x in scene.render_stereo(T, noise=1.0))
+              for T in poses]
+    torch.cuda.synchronize()
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    cfg = PLSLAMConfig(orb_nfeatures=1200, lsd_nfeatures=256, min_entropy_ratio=0.99,
+                       use_line_plucker=False, use_loop_closure=True, has_refinement=True,
+                       vocabulary_p=os.path.join(CONFIGS, "vocab_orb_k10L3.yml.gz"),
+                       vocabulary_l=os.path.join(CONFIGS, "vocab_lbd_k10L3.yml.gz"))
+    slam = PLSLAM(cam, cfg, MapConfig(local_ba_kf=8, ba_points=2048, ba_lines=256,
+                                      ba_pobs=8192, ba_lobs=2048, plucker_lines=False,
+                                      has_refinement=True), device=dev)
+    t0 = time.perf_counter()
+    for i in range(SLAM_WARMUP):
+        slam.process(*frames[i], timestamp=0.05 * i)
+    slam.wait_until_idle()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    for i in range(SLAM_WARMUP, SLAM_WARMUP + SLAM_FRAMES):
+        slam.process(*frames[i], timestamp=0.05 * i)
+    slam.wait_until_idle()
+    torch.cuda.synchronize()
+    fps = SLAM_FRAMES / (time.perf_counter() - t1)
+    n_kf = len(slam.mapper.map.keyframes)
+    n_lba = slam.mapper.n_local_ba_applied
+    n_bow = len(slam.loop_closer.bow)
+    t = time.perf_counter()
+    traj = slam.finish(run_gba=True)
+    torch.cuda.synchronize()
+    gba_ms = 1e3 * (time.perf_counter() - t)
+    wall = time.perf_counter() - t0
+    by_thread = {k: fn.launches_by_thread() for k, fn in wrappers.items()}
+
+    good = [lg.good for lg in slam.logs]
+    est = np.stack([T[:3, 3] for T in traj])
+    gt = np.stack([poses[int(round(ts / 0.05))][:3, 3] for ts in slam.kf_timestamps])
+    ate = ate_rmse(est, gt, align=True)
+    say(f"endpoint slam: {fps:.3f} full-SLAM frames/s over {SLAM_FRAMES} frames "
+        f"({wall:.3f} s for all {len(frames)} frames and the GBA); {sum(good)}/{len(good)} "
+        f"frames good; {n_kf} keyframes; {n_lba} local BAs written back; {n_bow} keyframes "
+        f"BoW-encoded; {len(slam.loop_reports)} loops; GBA (finish) {gba_ms:.3f} ms on {smi}")
+    say(f"endpoint slam: keyframe ATE {ate:.6f} m (aligned; floor {EP_ATE_FLOOR:.6f}, "
+        f"JAX CPU {JAX_CPU_EP_ATE:.6f})")
+    say(f"endpoint slam launches by thread: {by_thread}")
+    if slam._map_errors:
+        raise AssertionError(f"a worker thread raised: {slam._map_errors!r}")
+    if not all(good):
+        raise AssertionError(f"frames lost tracking: {good}")
+    if n_kf < 8:
+        raise AssertionError(f"only {n_kf} keyframes")
+    if n_lba < 1:
+        raise AssertionError("no local BA was written back")
+    if n_bow != n_kf:
+        raise AssertionError(f"{n_bow} BoW records for {n_kf} keyframes")
+    if slam.loop_reports:
+        raise AssertionError(f"false loop closure: {slam.loop_reports}")
+    if not np.isfinite(np.stack(traj)).all():
+        raise AssertionError("GBA poses are not finite")
+    if not ate <= EP_ATE_FLOOR:
+        raise AssertionError(f"keyframe ATE {ate} above floor {EP_ATE_FLOOR}")
+    if by_thread["hamming_distance_matrix_cuda"].get(MAPPER_THREAD, 0) <= 0:
+        raise AssertionError("the mapping thread never launched the Hamming kernel")
+    for k in KERNEL_WRAPPERS:
+        if sum(by_thread[k].values()) <= 0:
+            raise AssertionError(f"kernel {k} never launched on the endpoint SLAM path")
+    return by_thread, fps, ate
+
+
+class RingWorld:
+    """numpy twin of tests/_map_fixtures.RingWorld (same draws, same order):
+    points and wall-tangent segments on a cylindrical corridor wall."""
+
+    def __init__(self, n_pts=3000, n_ls=300, seed=5, radius=8.0, depth=(3.0, 8.0),
+                 height=2.5):
+        rng = np.random.default_rng(seed)
+        self.radius = radius
+        phi = rng.uniform(0, 2 * np.pi, n_pts)
+        rp = radius + rng.uniform(depth[0], depth[1], n_pts)
+        self.pts = np.stack([rp * np.cos(phi), rng.uniform(-height, height, n_pts),
+                             rp * np.sin(phi)], axis=-1)
+        self.pt_desc = rng.integers(0, 2 ** 32, (n_pts, 8), dtype=np.uint32)
+        phi = rng.uniform(0, 2 * np.pi, n_ls)
+        rl = radius + rng.uniform(depth[0], depth[1], n_ls)
+        A = np.stack([rl * np.cos(phi), rng.uniform(-height, height, n_ls),
+                      rl * np.sin(phi)], axis=-1)
+        tang = np.stack([-np.sin(phi), np.zeros(n_ls), np.cos(phi)], -1)
+        vert = np.stack([np.zeros(n_ls), np.ones(n_ls), np.zeros(n_ls)], -1)
+        is_v = rng.uniform(size=n_ls) < 0.4
+        B = A + np.where(is_v[:, None], vert, tang) * rng.uniform(0.8, 2.0, n_ls)[:, None]
+        self.ls_A, self.ls_B = A, B
+        self.ls_desc = rng.integers(0, 2 ** 32, (n_ls, 8), dtype=np.uint32)
+
+    def pose_at(self, theta: float) -> np.ndarray:
+        """Camera->world pose on the ring at angle theta, looking outward."""
+        z = np.array([np.cos(theta), 0.0, np.sin(theta)])
+        y = np.array([0.0, 1.0, 0.0])
+        T = np.eye(4)
+        T[:3, 0], T[:3, 1], T[:3, 2], T[:3, 3] = np.cross(y, z), y, z, self.radius * z
+        return T
+
+
+def _desc_noise(desc, n_bits, rng):
+    """Flip n_bits random bits per descriptor (a few bits differ between
+    sightings of one feature)."""
+    if n_bits <= 0 or not len(desc):
+        return desc
+    out = desc.copy()
+    words = rng.integers(0, 8, (len(desc), n_bits))
+    bits = rng.integers(0, 32, (len(desc), n_bits))
+    for j in range(n_bits):
+        out[np.arange(len(desc)), words[:, j]] ^= np.uint32(1) << bits[:, j].astype(np.uint32)
+    return out
+
+
+def render_ring_features(world, T_w_c, cam, rng, cap_pt=160, cap_ls=24, desc_noise_bits=6,
+                         width=752, height=480):
+    """numpy twin of tests/_map_fixtures.render_ring_features: the cap_pt
+    points and cap_ls segments nearest the image centre, padded, as
+    {"points": {...}, "lines": {...}} of numpy arrays (uint32 words);
+    ``cam`` is (fx, fy, cx, cy, b) as floats, ``rng`` draws the descriptor
+    noise."""
+    fx, fy, cx, cy, bl = cam
+    T_c_w = np.linalg.inv(T_w_c)
+    R, t = T_c_w[:3, :3], T_c_w[:3, 3]
+
+    def proj(Pw):
+        Pc = Pw @ R.T + t
+        z = np.maximum(Pc[:, 2], 1e-9)
+        uv = np.stack([cx + fx * Pc[:, 0] / z, cy + fy * Pc[:, 1] / z], -1)
+        ok = ((Pc[:, 2] > 0.5) & (uv[:, 0] >= 8) & (uv[:, 0] < width - 8)
+              & (uv[:, 1] >= 8) & (uv[:, 1] < height - 8))
+        return Pc, uv, ok
+
+    Pc, uv, ok = proj(world.pts)
+    d2 = (uv[:, 0] - cx) ** 2 + (uv[:, 1] - cy) ** 2
+    d2[~ok] = np.inf
+    sel = np.argsort(d2)[:cap_pt]
+    sel = sel[np.isfinite(d2[sel])]
+    n = len(sel)
+    f32 = functools.partial(np.zeros, dtype=np.float32)
+    points = dict(uv=f32((cap_pt, 2)), disp=np.ones(cap_pt, np.float32), P=f32((cap_pt, 3)),
+                  desc=np.zeros((cap_pt, 8), np.uint32), sigma2=np.ones(cap_pt, np.float32),
+                  valid=np.arange(cap_pt) < n)
+    points["uv"][:n] = uv[sel]
+    points["P"][:n] = Pc[sel]
+    points["desc"][:n] = _desc_noise(world.pt_desc[sel], desc_noise_bits, rng)
+    points["disp"][:n] = fx * bl / np.maximum(Pc[sel, 2], 1e-9)
+
+    aC, auv, aok = proj(world.ls_A)
+    bC, buv, bok = proj(world.ls_B)
+    lok = aok & bok
+    mid2 = ((0.5 * (auv + buv) - np.array([cx, cy])) ** 2).sum(-1)
+    mid2[~lok] = np.inf
+    lsel = np.argsort(mid2)[:cap_ls]
+    lsel = lsel[np.isfinite(mid2[lsel])]
+    m = len(lsel)
+    lines = dict(sp=f32((cap_ls, 2)), ep=f32((cap_ls, 2)), sdisp=np.ones(cap_ls, np.float32),
+                 edisp=np.ones(cap_ls, np.float32), sP=f32((cap_ls, 3)), eP=f32((cap_ls, 3)),
+                 le=f32((cap_ls, 3)), angle=None, NDc=f32((cap_ls, 6)),
+                 desc=np.zeros((cap_ls, 8), np.uint32), sigma2=np.ones(cap_ls, np.float32),
+                 valid=np.arange(cap_ls) < m)
+    if m:
+        a2, b2 = auv[lsel], buv[lsel]
+        le = np.cross(np.concatenate([a2, np.ones((m, 1))], 1),
+                      np.concatenate([b2, np.ones((m, 1))], 1))
+        lines["le"][:m] = le / np.maximum(np.hypot(le[:, 0], le[:, 1]), 1e-9)[:, None]
+        lines["sp"][:m], lines["ep"][:m] = a2, b2
+        lines["sP"][:m], lines["eP"][:m] = aC[lsel], bC[lsel]
+        lines["NDc"][:m] = np.concatenate([np.cross(aC[lsel], bC[lsel]),
+                                           bC[lsel] - aC[lsel]], axis=-1)
+        lines["desc"][:m] = _desc_noise(world.ls_desc[lsel], desc_noise_bits, rng)
+    lines["angle"] = np.arctan2(lines["ep"][:, 1] - lines["sp"][:, 1],
+                                lines["ep"][:, 0] - lines["sp"][:, 0]).astype(np.float32)
+    return {"points": points, "lines": lines}
+
+
+def _ate_translation(T_est, T_true) -> float:
+    """ATE RMSE with translation-only alignment (both gauges KF0-fixed)."""
+    e = np.stack([T[:3, 3] for T in T_est])
+    g = np.stack([T[:3, 3] for T in T_true])
+    e = e - e[0] + g[0]
+    return float(np.sqrt(((e - g) ** 2).sum(-1).mean()))
+
+
+class _Messages(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def phase_loop_closure(dev, smi):
+    """tests/test_scale_e2e.py's ring replay through PLSLAM on the card."""
+    from plslam_tpu_torch.backend.mapping import MapConfig
+    from plslam_tpu_torch.config import PLSLAMConfig
+    from plslam_tpu_torch.convert import stereo_features_from_numpy
+    from plslam_tpu_torch.core import lie
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.pipeline import PLSLAM
+
+    cam = StereoCamera.create(458.0, 457.0, 376.0, 240.0, 0.11, width=752, height=480)
+    cam_k = cam[:5]   # the f32-rounded intrinsics, as the fixture renders
+    world = RingWorld(n_pts=3000, n_ls=300, seed=5)
+    thetas = np.linspace(0.0, 2 * np.pi * RING_KF / 140.0, RING_KF, endpoint=False)
+    T_true = [world.pose_at(th) for th in thetas]
+    rng = np.random.default_rng(11)
+    T_est = [T_true[0]]
+    for i in range(1, RING_KF):
+        rel = np.linalg.inv(T_true[i - 1]) @ T_true[i]
+        eps = np.concatenate([rng.normal(0, 0.010, 3), rng.normal(0, 0.0025, 3)])
+        T_est.append(T_est[-1] @ rel @ lie.exp_se3(torch.from_numpy(eps)).numpy())
+    desc_rng = np.random.default_rng(1234)
+    feats = [stereo_features_from_numpy(render_ring_features(world, T, cam_k, desc_rng), dev)
+             for T in T_true]
+    torch.cuda.synchronize()
+
+    cfg = PLSLAMConfig(use_line_plucker=False, use_loop_closure=True, multithread_slam=True)
+    if cfg.lc_kf_dist != 50:
+        raise AssertionError(f"lc_kf_dist {cfg.lc_kf_dist}: the reference gating is 50")
+    slam = PLSLAM(cam, cfg, MapConfig(use_lines=True, plucker_lines=False, local_ba_kf=8,
+                                      ba_points=512, ba_lines=64, ba_pobs=2048, ba_lobs=512),
+                  device=dev)
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for i in range(RING_KF):
+        slam.insert_keyframe_features(T_est[i], feats[i], timestamp=0.1 * i)
+    slam.wait_until_idle()
+    torch.cuda.synchronize()
+    kf_per_s = RING_KF / (time.perf_counter() - t0)
+    mp = slam.mapper.map
+    ate_closed = _ate_translation([k.T_w_k for k in mp.keyframes], T_true)
+
+    log = logging.getLogger("plslam")
+    handler, old_level = _Messages(), log.level
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    try:
+        t = time.perf_counter()
+        traj = slam.finish(run_gba=True)
+        torch.cuda.synchronize()
+        gba_ms = 1e3 * (time.perf_counter() - t)
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(old_level)
+    by_thread = {k: fn.launches_by_thread() for k, fn in wrappers.items()}
+    gba_msgs = [m for m in handler.messages if m.startswith("GBA:")]
+    n_chunks = int(gba_msgs[-1].split(" in ")[1].split()[0]) if gba_msgs else 0
+    ate_gba = _ate_translation(traj, T_true)
+    drift_odo = _ate_translation(T_est, T_true)
+    reports = slam.loop_reports
+    r = reports[-1] if reports else None
+    say(f"loop: {kf_per_s:.3f} keyframes/s over the {RING_KF}-keyframe replay; "
+        f"{len(mp.keyframes)} keyframes, {int(mp.pt_valid.sum())} points, "
+        f"{int(mp.ls_valid.sum())} lines; on {smi}")
+    for rep in reports:
+        say(f"loop: closure kf {rep['kf']} -> candidate {rep['candidate']}: PGO "
+            f"{rep['pgo_ms']:.3f} ms, fusion {rep['fuse_ms']:.3f} ms, fused {rep['fused']}, "
+            f"correction {rep['correction']:.6f} m on {smi}")
+    say(f"loop: ATE odometry {drift_odo:.6f} m, after the closure {ate_closed:.6f} m, after "
+        f"the GBA {ate_gba:.6f} m; GBA (finish) {gba_ms:.3f} ms in {n_chunks} chunks on {smi}")
+    say(f"loop launches by thread: {by_thread}")
+    if slam._map_errors:
+        raise AssertionError(f"a worker thread raised: {slam._map_errors!r}")
+    if r is None:
+        raise AssertionError("no loop closure at lc_kf_dist=50")
+    for rep in reports:
+        if not (rep["kf"] >= RING_REVISIT and rep["candidate"] <= 20):
+            raise AssertionError(f"false loop closure: {rep}")
+    if not (r["candidate"] <= r["kf"] - 50):
+        raise AssertionError(f"candidate within lc_kf_dist: {r}")
+    if not (drift_odo > 0.1 and ate_closed < drift_odo):
+        raise AssertionError(f"ATE after the closure {ate_closed} vs odometry {drift_odo}")
+    k = r["kf"]
+    err_odo = np.linalg.norm(T_est[k][:3, 3] - T_true[k][:3, 3])
+    err_map = np.linalg.norm(mp.keyframes[k].T_w_k[:3, 3] - T_true[k][:3, 3])
+    say(f"loop: closure keyframe error {err_map:.6f} m vs odometry {err_odo:.6f} m")
+    if not (err_odo > 0.1 and err_map < 0.5 * err_odo):
+        raise AssertionError(f"closure keyframe error {err_map} vs odometry {err_odo}")
+    if sum(r["fused"].values()) < 10:
+        raise AssertionError(f"too little fusion: {r['fused']}")
+    if n_chunks < 2:
+        raise AssertionError(f"GBA ran in {n_chunks} chunk(s): {gba_msgs}")
+    if not (np.isfinite(np.stack(traj)).all() and ate_gba < 1.0):
+        raise AssertionError(f"GBA poses: finite {np.isfinite(np.stack(traj)).all()}, "
+                             f"ATE {ate_gba}")
+    if by_thread["hamming_distance_matrix_cuda"].get(LOOP_THREAD, 0) <= 0:
+        raise AssertionError("the loop-closure thread never launched the Hamming kernel")
+    return by_thread, kf_per_s
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -435,15 +770,21 @@ def main() -> int:
     launches, fps, ate = phase_main_path(dev, scene, poses, frames)
     slam_launches, slam_fps, slam_ate = phase_slam(dev, scene, smi)
     lm_ips = phase_local_ba(dev, smi)
+    ep_launches, ep_fps, ep_ate = phase_endpoint_slam(dev, scene, smi)
+    loop_launches, loop_kf_s = phase_loop_closure(dev, smi)
     for k in report:
-        slam_k = slam_launches[k["name"]]
-        k["launches"] = launches[k["name"]] + sum(slam_k.values())
-        k["launches_by_path"] = {"vo": launches[k["name"]], "slam": slam_k}
+        by_path = {"vo": launches[k["name"]], "slam": slam_launches[k["name"]],
+                   "slam_endpoint": ep_launches[k["name"]], "loop": loop_launches[k["name"]]}
+        k["launches"] = by_path["vo"] + sum(sum(v.values()) for p, v in by_path.items()
+                                            if p != "vo")
+        k["launches_by_path"] = by_path
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
     say(f"main path: {fps:.3f} frames/s, ATE {ate:.6f} m on {smi}")
     say(f"slam path: {slam_fps:.3f} frames/s, keyframe ATE {slam_ate:.6f} m; local BA "
         f"{lm_ips:.3f} LM iterations/s on {smi}")
+    say(f"endpoint slam path: {ep_fps:.3f} frames/s, keyframe ATE {ep_ate:.6f} m; loop "
+        f"replay {loop_kf_s:.3f} keyframes/s on {smi}")
     say(json.dumps({"kernels": report}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -13,9 +13,10 @@ gates, the packed host copy of the features), the local BA, and the
 chunked global BA.  Each returns one buffer that comes to the host in one
 copy.
 
-Not ported here (ROADMAP queue 1): endpoint-line mapping
-(``plucker_lines=False``) and ``has_refinement``; both raise
-``NotImplementedError``.
+Both line modes: Pluecker landmarks (``plucker_lines=True``) ride the BA's
+line table; endpoint landmarks take two slots each of its point table and
+their observations two point-to-line rows each.  ``has_refinement`` runs
+the split association with a pose refinement between KF2KF and Map2KF.
 """
 
 from __future__ import annotations
@@ -33,7 +34,9 @@ from ..core import lie
 from ..core.camera import StereoCamera
 from ..core.plucker import (normalize_plucker, orth_to_plucker, plucker_to_orth,
                             transform_plucker)
-from ..frontend.features import LineSet, PointSet, StereoFeatures
+from ..frontend.features import (LineSet, PointSet, StereoFeatures, TrackedLines,
+                                 TrackedPoints)
+from ..frontend.tracker import TrackerConfig, optimize_pose
 from ..ops import matching as M
 from ..convert import ba_problem_from_numpy
 from . import ba as ba_mod
@@ -706,13 +709,6 @@ class MapHandler:
     def __init__(self, cam: StereoCamera, cfg: MapConfig = MapConfig(),
                  ba_cfg: Optional[ba_mod.BAConfig] = None, tracker_cfg=None, *,
                  device):
-        if cfg.use_lines and not cfg.plucker_lines:
-            raise NotImplementedError(
-                "endpoint-line mapping (plucker_lines=False) is not ported yet "
-                "(ROADMAP queue 1: endpoint mapping)")
-        if cfg.has_refinement:
-            raise NotImplementedError(
-                "has_refinement is not ported yet (ROADMAP queue 1: has_refinement)")
         self.cam = cam
         self.cfg = cfg
         self.ba_cfg = ba_cfg or ba_mod.BAConfig()
@@ -889,7 +885,22 @@ class MapHandler:
         map pose is chained through the previous keyframe's optimized pose
         (T_curr_w = T_prev * T_rel, addKeyFrame :162)."""
         self._trim_device_cache()
-        kf = self._associate_and_insert(pose, feats)
+        if self.cfg.has_refinement:
+            # the refinement re-solves the pose between the KF2KF and Map2KF
+            # passes (:937-977), so the association runs split
+            self.flush_ba()
+            prev = self.map.keyframes[-1]
+            pose_vo = np.asarray(pose, np.float64)
+            rel = np.linalg.inv(getattr(prev, "T_vo", prev.T_w_k)) @ pose_vo
+            kf = KeyframeRecord(len(self.map.keyframes), prev.T_w_k @ rel, feats)
+            kf.T_vo = pose_vo
+            self.map.keyframes.append(kf)
+            self.map.expand_graphs()
+            self._match_kf2kf(kf)
+            self._refine_kf_pose(kf)
+            self._match_map2kf(kf)
+        else:
+            kf = self._associate_and_insert(pose, feats)
         self._spawn_landmarks(kf)  # leftovers become new landmarks
         if run_ba:
             self.local_bundle_adjustment(defer=defer_ba)
@@ -1053,6 +1064,71 @@ class MapHandler:
         all_fis = np.concatenate([i2[has], n2[ok]])
         mp.add_line_obs(all_lms, kf.id, all_fis)
         kf.ls_lm[all_fis] = all_lms
+
+    def _refine_kf_pose(self, kf: KeyframeRecord):
+        """hasRefinement (:937-977): re-run the robust pose optimizer on the
+        keyframe pair and take its pose if it passes the acceptance gates."""
+        mp = self.map
+        prev = mp.keyframes[-2]
+        tcfg = (self.tracker_cfg or TrackerConfig())._replace(
+            plucker_lines=self.cfg.plucker_lines, use_lines=self.cfg.use_lines)
+        # correspondences: prev feature and new feature share a landmark,
+        # joined through a landmark -> new-feature inverse table
+        n = len(prev.pt_valid)
+        obs = np.zeros((n, 2), np.float32)
+        inv = np.full(max(mp.n_pt, 1), -1, np.int64)
+        w2 = kf.pt_lm >= 0
+        inv[kf.pt_lm[w2]] = np.where(w2)[0]
+        lm1 = prev.pt_lm
+        val = (lm1 >= 0) & (inv[np.maximum(lm1, 0)] >= 0)
+        obs[val] = kf.pt_uv[inv[lm1[val]]]
+
+        nl = len(prev.ls_valid)
+        sobs = np.zeros((nl, 2), np.float32)
+        eobs = np.zeros((nl, 2), np.float32)
+        le = np.zeros((nl, 3), np.float32)
+        inv_l = np.full(max(mp.n_ls, 1), -1, np.int64)
+        w2 = kf.ls_lm >= 0
+        inv_l[kf.ls_lm[w2]] = np.where(w2)[0]
+        lm1 = prev.ls_lm
+        lval = (lm1 >= 0) & (inv_l[np.maximum(lm1, 0)] >= 0)
+        i2s = inv_l[lm1[lval]]
+        sp, ep = kf.ls_sp[i2s], kf.ls_ep[i2s]
+        lo = np.cross(np.concatenate([sp, np.ones((len(sp), 1))], 1),
+                      np.concatenate([ep, np.ones((len(ep), 1))], 1))
+        nrm = np.hypot(lo[:, 0], lo[:, 1])
+        ok = nrm > 1e-9
+        idx1 = np.where(lval)[0][ok]
+        sobs[idx1], eobs[idx1] = sp[ok], ep[ok]
+        le[idx1] = lo[ok] / nrm[ok, None]
+        lval = np.zeros(nl, bool)
+        lval[idx1] = True
+
+        up = functools.partial(_upload, device=self.device)
+        pts = TrackedPoints(P=up(prev.pt_P), obs=up(obs), sigma2=up(prev.pt_sigma2),
+                            valid=up(val), inlier=up(val))
+        ls = TrackedLines(sP=up(prev.ls_sP), eP=up(prev.ls_eP), sp=up(prev.ls_sp),
+                          ep=up(prev.ls_ep), NDc=up(prev.ls_NDc), sobs=up(sobs),
+                          eobs=up(eobs), le_obs=up(le), sigma2=up(prev.ls_sigma2),
+                          valid=up(lval), inlier=up(lval))
+        est, pts_out, ls_out = optimize_pose(pts, ls, self.cam, tcfg)
+        f32 = torch.float32
+        buf = torch.cat([est.DT.reshape(-1).to(f32), est.good.to(f32)[None],
+                         pts_out.inlier.sum(dtype=torch.int32).to(f32)[None],
+                         ls_out.inlier.sum(dtype=torch.int32).to(f32)[None]]).cpu().numpy()
+        DT, good = buf[:16].reshape(4, 4), bool(buf[16] > 0.5)
+        inl_pt, inl_ls = int(buf[17]), int(buf[18])
+        # acceptance (:952-967): per-modality inlier ratio at least
+        # kf_inlier_ratio and more than min_features inliers, else the
+        # keyframe keeps the chained VO pose
+        r_pt = 100.0 * inl_pt / max(int(val.sum()), 1)
+        r_ls = 100.0 * inl_ls / max(int(lval.sum()), 1)
+        cond = r_pt >= self.cfg.kf_inlier_ratio
+        if self.cfg.use_lines and lval.any():
+            cond = cond and r_ls >= self.cfg.kf_inlier_ratio
+        if good and cond and inl_pt + inl_ls > self.cfg.min_features:
+            # DT maps prev-camera points into the new camera
+            kf.T_w_k = prev.T_w_k @ np.linalg.inv(DT.astype(np.float64))
 
     def _local_landmark_mask(self, table: _ObsTable, n_lm: int,
                              local_kf: np.ndarray) -> np.ndarray:
@@ -1227,10 +1303,20 @@ class MapHandler:
         point_valid[: len(pt_ids)] = True
         line_valid = np.zeros(cap_ls, bool)
         lines_plucker = None
-        if len(ls_ids):
+        plucker = self.cfg.plucker_lines
+        ep_base = len(pt_ids)  # first endpoint slot in the point table
+        if plucker and len(ls_ids):
             lines_plucker = np.zeros((cap_ls, 6), dtype)
             lines_plucker[: len(ls_ids)] = mp.ls_w[ls_ids]
             line_valid[: len(ls_ids)] = True
+        elif len(ls_ids):
+            # endpoint mode: each line takes two 3-DoF slots of the point
+            # table (levMarquardtOptimizationLBA :1429-1445 layout)
+            sl = np.arange(len(ls_ids))
+            points[ep_base + 2 * sl] = mp.ls_epw[ls_ids, 0]
+            points[ep_base + 2 * sl + 1] = mp.ls_epw[ls_ids, 1]
+            point_valid[ep_base + 2 * sl] = True
+            point_valid[ep_base + 2 * sl + 1] = True
 
         tb = mp.pobs
         psel = (tb.valid[: tb.n] & (slot_of_kf[tb.kf[: tb.n]] >= 0)
@@ -1258,24 +1344,57 @@ class MapHandler:
         lsel = (tb.valid[: tb.n] & (slot_of_kf[tb.kf[: tb.n]] >= 0)
                 & (lslot[tb.lm[: tb.n]] >= 0))
         lrows = np.where(lsel)[0]
-        if len(lrows) > cap_lobs:
-            log.warning("BA line-obs capacity exceeded: %d > %d rows",
-                        len(lrows), cap_lobs)
-            lrows = lrows[:cap_lobs]
-        nl = len(lrows)
-        cam_slots = slot_of_kf[tb.kf[lrows]]
         l_cam = np.zeros(cap_lobs, np.int64)
         l_lm = np.zeros(cap_lobs, np.int64)
         l_sobs = np.zeros((cap_lobs, 2), dtype)
         l_eobs = np.zeros((cap_lobs, 2), dtype)
         l_sig = np.ones(cap_lobs, dtype)
         l_val = np.zeros(cap_lobs, bool)
-        l_cam[:nl] = cam_slots
-        l_lm[:nl] = lslot[tb.lm[lrows]]
-        l_sobs[:nl] = kf_ls_sp[cam_slots, tb.fi[lrows]]
-        l_eobs[:nl] = kf_ls_ep[cam_slots, tb.fi[lrows]]
-        l_sig[:nl] = kf_ls_sig[cam_slots, tb.fi[lrows]]
-        l_val[:nl] = True
+        p_lo = p_is_line = None
+        if plucker:
+            if len(lrows) > cap_lobs:
+                log.warning("BA line-obs capacity exceeded: %d > %d rows",
+                            len(lrows), cap_lobs)
+                lrows = lrows[:cap_lobs]
+            nl = len(lrows)
+            cam_slots = slot_of_kf[tb.kf[lrows]]
+            l_cam[:nl] = cam_slots
+            l_lm[:nl] = lslot[tb.lm[lrows]]
+            l_sobs[:nl] = kf_ls_sp[cam_slots, tb.fi[lrows]]
+            l_eobs[:nl] = kf_ls_ep[cam_slots, tb.fi[lrows]]
+            l_sig[:nl] = kf_ls_sig[cam_slots, tb.fi[lrows]]
+            l_val[:nl] = True
+        else:
+            # endpoint mode: each line obs gives two point-table rows, the
+            # projected endpoint against the observed image line
+            room = (cap_pobs - n) // 2
+            if len(lrows) > room:
+                log.warning("BA endpoint-line obs overflow: %d > %d",
+                            len(lrows), room)
+                lrows = lrows[:room]
+            cam_slots = slot_of_kf[tb.kf[lrows]]
+            sp = kf_ls_sp[cam_slots, tb.fi[lrows]]
+            ep = kf_ls_ep[cam_slots, tb.fi[lrows]]
+            lo = np.cross(np.concatenate([sp, np.ones_like(sp[:, :1])], 1),
+                          np.concatenate([ep, np.ones_like(ep[:, :1])], 1))
+            nrm = np.hypot(lo[:, 0], lo[:, 1])
+            keep = nrm > 1e-9
+            lrows = lrows[keep]
+            lo = lo[keep] / nrm[keep, None]
+            cam_slots = cam_slots[keep]
+            m = len(lrows)
+            p_lo = np.zeros((cap_pobs, 3), dtype)
+            p_is_line = np.zeros(cap_pobs, bool)
+            sl = lslot[tb.lm[lrows]]
+            r0 = n + 2 * np.arange(m)
+            for off in (0, 1):
+                rr = r0 + off
+                p_cam[rr] = cam_slots
+                p_lm[rr] = ep_base + 2 * sl + off
+                p_lo[rr] = lo
+                p_is_line[rr] = True
+                p_sig[rr] = kf_ls_sig[cam_slots, tb.fi[lrows]]
+                p_val[rr] = True
 
         prob = ba_mod.BAProblem(
             T_c_w=T, pose_fixed=pose_fixed, pose_valid=pose_valid,
@@ -1284,9 +1403,10 @@ class MapHandler:
             line_valid=line_valid,
             p_cam=p_cam, p_lm=p_lm, p_uv=p_uv, p_sigma2=p_sig, p_valid=p_val,
             l_cam=l_cam, l_lm=l_lm, l_sobs=l_sobs, l_eobs=l_eobs, l_sigma2=l_sig,
-            l_valid=l_val)
+            l_valid=l_val, p_lo=p_lo, p_is_line=p_is_line)
         meta = dict(local_ids=local_ids, pt_ids=pt_ids, ls_ids=ls_ids, prows=prows,
-                    lrows=lrows, lines_plucker=lines_plucker)
+                    lrows=lrows, lines_plucker=lines_plucker, plucker=plucker,
+                    ep_base=ep_base)
         return prob, meta
 
     def _ba_landmark_ids(self, slotmask: np.ndarray, min_obs: int = 2):
@@ -1318,17 +1438,30 @@ class MapHandler:
             log.warning("local BA point capacity exceeded: %d > %d "
                         "(keeping most recent)", len(pt_ids), cfg.ba_points)
             pt_ids = pt_ids[-cfg.ba_points:]
-        if len(ls_ids) > cfg.ba_lines:
+        if not cfg.plucker_lines:
+            # endpoint mode: each line takes two 3-DoF point slots
+            room = (cfg.ba_points - len(pt_ids)) // 2
+            if len(ls_ids) > max(room, 0):
+                log.warning("local BA line capacity exceeded: %d lines > %d "
+                            "endpoint slots left of ba_points=%d (keeping most "
+                            "recent)", len(ls_ids), max(room, 0), cfg.ba_points)
+            ls_ids = ls_ids[-max(room, 0):] if room > 0 else ls_ids[:0]
+        elif len(ls_ids) > cfg.ba_lines:
             log.warning("local BA line capacity exceeded: %d > %d",
                         len(ls_ids), cfg.ba_lines)
             ls_ids = ls_ids[-cfg.ba_lines:]
+        # capacities bucketed to powers of two of the actual size
         n_pobs = self._count_obs(mp.pobs, slotmask, mp.n_pt, pt_ids)
         n_lobs = self._count_obs(mp.lobs, slotmask, mp.n_ls, ls_ids)
+        need_pts, need_pobs = len(pt_ids), n_pobs
+        if not cfg.plucker_lines:
+            need_pts += 2 * len(ls_ids)
+            need_pobs += 2 * n_lobs
         return self._assemble_problem(
             local_ids, pt_ids, ls_ids,
-            min(cfg.ba_points, _pad_bucket(len(pt_ids), lo=256)),
+            min(cfg.ba_points, _pad_bucket(need_pts, lo=256)),
             min(cfg.ba_lines, _pad_bucket(len(ls_ids), lo=64)),
-            min(cfg.ba_pobs, _pad_bucket(n_pobs, lo=1024)),
+            min(cfg.ba_pobs, _pad_bucket(need_pobs, lo=1024)),
             min(cfg.ba_lobs, _pad_bucket(n_lobs, lo=256)),
             fix_rule="local", cap_k=cfg.local_ba_kf)
 
@@ -1346,14 +1479,13 @@ class MapHandler:
         """Run the two-round BA on the device; return one f32 buffer
         [T_c_w | points | lines as ||d||=1 Pluecker | p_active | l_active |
         cost] and its layout."""
-        lp = meta["lines_plucker"]
-        if lp is None:
-            lp = np.zeros((prob.lines_orth.shape[0], 6), np.float32)
         dp = ba_problem_from_numpy(prob, self.device)
-        Lw = _upload(lp, self.device)
-        scale = torch.linalg.norm(Lw, dim=-1)
-        dp = dp._replace(lines_scale=scale,
-                         lines_orth=plucker_to_orth(Lw / torch.clamp(scale, min=1e-12)[:, None]))
+        lp = meta["lines_plucker"]
+        if lp is not None:
+            Lw = _upload(lp, self.device)
+            scale = torch.linalg.norm(Lw, dim=-1)
+            dp = dp._replace(lines_scale=scale, lines_orth=plucker_to_orth(
+                Lw / torch.clamp(scale, min=1e-12)[:, None]))
         res = ba_mod.bundle_adjust(dp, self.cam, self.ba_cfg)
         # the optimizer's 6-vector scale cancels in the ||d|| normalization
         Lo = orth_to_plucker(res.problem.lines_orth)
@@ -1435,6 +1567,16 @@ class MapHandler:
         self._finish_local_ba(both[: len(pout)], lay, meta)
         return both[len(pout):]
 
+    def _gba_chunk_caps(self):
+        """Per-chunk landmark capacities: (point table, line table, points
+        per chunk, lines per chunk); in endpoint mode |points| + 2 |lines|
+        stays within the point table."""
+        cap_p, cap_l = self.cfg.ba_points, self.cfg.ba_lines
+        if self.cfg.plucker_lines:
+            return cap_p, cap_l, cap_p, cap_l
+        cap_p_eff = max(cap_p - 2 * cap_l, cap_p // 2)
+        return cap_p, cap_l, cap_p_eff, max(1, min(cap_l, (cap_p - cap_p_eff) // 2))
+
     @_locked
     def global_bundle_adjustment(self):
         """GBA over every active keyframe and every landmark, tiled in
@@ -1449,13 +1591,13 @@ class MapHandler:
         slotmask = np.zeros(len(mp.keyframes), bool)
         slotmask[local_ids] = True
         pt_ids, ls_ids = self._ba_landmark_ids(slotmask)
-        cap_p, cap_l = cfg.ba_points, cfg.ba_lines
-        n_chunks = max(1, -(-len(pt_ids) // cap_p), -(-len(ls_ids) // cap_l))
+        cap_p, cap_l, cap_pe, cap_le = self._gba_chunk_caps()
+        n_chunks = max(1, -(-len(pt_ids) // cap_pe), -(-len(ls_ids) // cap_le))
         probs, metas = [], []
         for c in range(n_chunks):
             prob, meta = self._assemble_problem(
-                local_ids, pt_ids[c * cap_p: (c + 1) * cap_p],
-                ls_ids[c * cap_l: (c + 1) * cap_l], cap_p, cap_l,
+                local_ids, pt_ids[c * cap_pe: (c + 1) * cap_pe],
+                ls_ids[c * cap_le: (c + 1) * cap_le], cap_p, cap_l,
                 cfg.ba_pobs, cfg.ba_lobs, fix_rule="kf0",
                 cap_k=_pad_bucket(len(local_ids), lo=8))
             probs.append(_orth_from_plucker_meta(prob, meta))
@@ -1496,12 +1638,35 @@ class MapHandler:
         return res
 
     def _write_back_landmarks(self, points, lines, scale, p_active, l_active, meta):
-        """Optimized landmarks into the map; lines come as ||d||=1 Pluecker
-        (N, 6) or as orth coordinates (N, 4) with their 6-vector scales."""
+        """Optimized landmarks into the map.  Pluecker lines come as ||d||=1
+        Pluecker (N, 6) or as orth coordinates (N, 4) with their 6-vector
+        scales; endpoint lines come through ``points`` (``meta['ep_base']``
+        on) and ``lines`` is ignored."""
         mp = self.map
         pt_ids, ls_ids = meta["pt_ids"], meta["ls_ids"]
         if len(pt_ids):
             mp.pt_w[pt_ids] = points[: len(pt_ids)]
+        prows, lrows = meta["prows"], meta["lrows"]
+        bad_p = prows[~p_active[: len(prows)]]
+        if not meta["plucker"]:
+            if len(ls_ids):
+                # optimized endpoints come back through the point table;
+                # refresh the Pluecker form (n = sP x eP, d = eP - sP,
+                # ||d|| = 1) for projection-based matching
+                sl = np.arange(len(ls_ids))
+                sP = points[meta["ep_base"] + 2 * sl].astype(np.float64)
+                eP = points[meta["ep_base"] + 2 * sl + 1].astype(np.float64)
+                mp.ls_epw[ls_ids] = np.stack([sP, eP], axis=1)
+                d = eP - sP
+                nd = np.linalg.norm(d, axis=-1)
+                ok = np.isfinite(nd) & (nd > 1e-9)
+                Lw = np.concatenate([np.cross(sP, eP), d], 1)
+                mp.ls_w[ls_ids[ok]] = Lw[ok] / nd[ok, None]
+            # a line observation stays only if both its endpoint rows do
+            pa = p_active[len(prows): len(prows) + 2 * len(lrows)]
+            self._prune_obs(bad_p, points_table=True)
+            self._prune_obs(lrows[~(pa[0::2] & pa[1::2])], points_table=False)
+            return
         if len(ls_ids):
             nls = len(ls_ids)
             if lines.shape[-1] == 6:
@@ -1521,8 +1686,7 @@ class MapHandler:
             ok = np.isfinite(snapped).all(axis=(1, 2))
             mp.ls_epw[ls_ids[ok]] = snapped[ok]
         # prune gated-out observations (:6154-6293) with covis decrements
-        prows, lrows = meta["prows"], meta["lrows"]
-        self._prune_obs(prows[~p_active[: len(prows)]], points_table=True)
+        self._prune_obs(bad_p, points_table=True)
         self._prune_obs(lrows[~l_active[: len(lrows)]], points_table=False)
 
     def _prune_obs(self, rows: np.ndarray, points_table: bool):

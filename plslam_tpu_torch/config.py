@@ -11,11 +11,12 @@ from __future__ import annotations
 from plslam_tpu.config import PLSLAMConfig
 
 from .backend.ba import BAConfig
+from .backend.loop import LoopConfig
 from .backend.mapping import MapConfig
 from .frontend.frame import FrontendConfig
 from .frontend.tracker import TrackerConfig
 
-__all__ = ["PLSLAMConfig", "frontend", "tracker", "map_cfg", "ba"]
+__all__ = ["PLSLAMConfig", "frontend", "tracker", "map_cfg", "loop_cfg", "ba"]
 
 
 def frontend(cfg: PLSLAMConfig, image_max_dim: int = 752) -> FrontendConfig:
@@ -74,6 +75,28 @@ def map_cfg(cfg: PLSLAMConfig) -> MapConfig:
         has_refinement=cfg.has_refinement,
         kf_inlier_ratio=cfg.kf_inlier_ratio,
         min_features=cfg.min_features,
+    )
+
+
+def loop_cfg(cfg: PLSLAMConfig) -> LoopConfig:
+    return LoopConfig(
+        lc_kf_dist=cfg.lc_kf_dist,
+        lc_nkf_closest=cfg.lc_nkf_closest,
+        lc_res=cfg.lc_res,
+        lc_unc=cfg.lc_unc,
+        lc_trs=cfg.lc_trs,
+        lc_rot=cfg.lc_rot,
+        min_pt_matches=cfg.min_pt_matches,
+        min_ls_matches=cfg.min_ls_matches,
+        lc_inlier_ratio=cfg.lc_inlier_ratio,
+        lc_kf_max_dist=cfg.lc_kf_max_dist,
+        vocabulary_file=cfg.vocabulary_p,
+        vocabulary_file_l=cfg.vocabulary_l,
+        vocab_refresh_kfs=cfg.vocab_refresh_kfs,
+        pgo_iters=min(cfg.max_iters_pgo, 25),
+        fuse_dist=cfg.max_point_point_error,
+        fuse_dist_pl=cfg.max_point_line_error,
+        fuse_dist_dir=cfg.max_dir_line_error,
     )
 
 

@@ -1,9 +1,10 @@
 """State carried across from the JAX package, as numpy arrays.
 
 There are no learned weights.  What crosses over is the camera, the
-feature sets, the tracking state (``VOState``) and BA problems; the descriptor tables
-are re-derived by the same numpy code in ``ops/orb.py``, ``ops/lbd.py``
-and ``ops/image.py``.  Inputs are numpy arrays, dicts of them, or
+feature sets, the tracking state (``VOState``), BA problems and the whole
+SLAM map with the loop closer's state (``map_state_from_numpy``, the
+checkpoint layout); the descriptor tables are re-derived by the same numpy
+code in ``ops/orb.py``, ``ops/lbd.py`` and ``ops/image.py``.  Inputs are numpy arrays, dicts of them, or
 NamedTuples of them (e.g. ``jax.tree.map(np.asarray, state)`` on the JAX
 side); this module never imports jax.  uint32 descriptor words become
 int32 by a bit-preserving view, keeping the LSB-first bit order.
@@ -92,3 +93,12 @@ def ba_problem_from_numpy(prob, device) -> BAProblem:
                                   device)
         out[k] = v
     return BAProblem(**out)
+
+
+def map_state_from_numpy(state, mapper, loop_closer=None):
+    """Restore a map saved by either package (an ``np.load`` npz, or the
+    dict of numpy arrays of ``plslam_tpu.io.checkpoint.save_map``'s layout)
+    into the port's ``MapHandler`` and ``LoopCloser``, in place."""
+    from .io.checkpoint import restore_map_state
+
+    return restore_map_state(state, mapper, loop_closer)

@@ -4,15 +4,19 @@ BA + global BA (``plslam_tpu.pipeline``; reference
 keyframe MapHandler::addKeyFrame, at the end globalBundleAdjustment
 :169-176 and SaveKeyFrameTrajectoryTUM).
 
+With loop closure (endpoint-line mode only, as in the reference) a third
+thread, ``plslam-loopcloser``, encodes every keyframe and closes loops off
+the mapping thread.  Checkpoints save and restore the map and the loop
+closer's state in the JAX package's layout.
+
 Not ported yet (ROADMAP queue 1), each raising ``NotImplementedError``:
-endpoint-line mapping, ``has_refinement``, loop closure, the distributed
-GBA (``mesh=``), overlays, the live scene export and checkpoints.  As in
-the reference, loop closure is refused outright in Pluecker mode.
+the distributed GBA (``mesh=``), overlays and the live scene export.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import queue
 import threading
 import time
@@ -24,9 +28,11 @@ import torch
 from plslam_tpu.io.trajectory import save_tum
 
 from . import config as C
+from .backend.loop import LoopCloser
 from .backend.mapping import MapConfig, MapHandler
 from .config import PLSLAMConfig
 from .core.camera import StereoCamera
+from .io.checkpoint import load_map, save_map
 from .vo import VisualOdometry
 
 
@@ -51,7 +57,8 @@ class FrameLog:
 class PLSLAM:
     """Stereo point+line SLAM on ``device``.  With
     ``config.multithread_slam`` (the default) mapping runs on a worker
-    thread fed by a bounded keyframe queue."""
+    thread fed by a bounded keyframe queue, and loop closure on a second
+    worker fed by an unbounded keyframe-id queue."""
 
     def __init__(self, cam: StereoCamera, config: PLSLAMConfig | None = None,
                  map_cfg: MapConfig | None = None, *, device):
@@ -61,14 +68,10 @@ class PLSLAM:
                 "loop closure cannot be enabled in Pluecker line mode "
                 "(reference constraint, README.md:12); set "
                 "use_line_plucker=False for the loop-closure baseline")
-        if cfg.use_loop_closure:
-            raise _not_ported("loop closure", "loop closure")
         if cfg.overlay_every > 0:
             raise _not_ported("overlay_every", "overlays")
         if cfg.viz_every_kf > 0:
             raise _not_ported("viz_every_kf", "viz")
-        if cfg.checkpoint_every_kf > 0:
-            raise _not_ported("checkpoint_every_kf", "checkpoints")
         self.cam = cam
         self.device = torch.device(device)
         self.vo = VisualOdometry(cam, C.frontend(cfg, max(int(cam.width), int(cam.height))),
@@ -80,14 +83,20 @@ class PLSLAM:
             min_pt_matches=cfg.min_pt_matches)
         self.mapper = MapHandler(cam, mcfg, C.ba(cfg), tracker_cfg=C.tracker(cfg),
                                  device=self.device)
+        self.loop_closer = (LoopCloser(cam, self.mapper, C.loop_cfg(cfg))
+                            if cfg.use_loop_closure else None)
+        self.loop_reports: list[dict] = []
         self.logs: list[FrameLog] = []
         self.kf_timestamps: list[float] = []
         self._frame_idx = 0
         self._initialized = False
+        self._T_anchor = np.eye(4)   # world pose of a resumed VO chain
 
         self._kf_queue: queue.Queue | None = None
         self._map_thread: threading.Thread | None = None
         self._map_errors: list[BaseException] = []
+        self._lc_queue: queue.Queue | None = None
+        self._lc_thread: threading.Thread | None = None
         if cfg.multithread_slam:
             # bounded: an unbounded tracker run-ahead makes every mapping
             # copy wait behind the queued work of all the frames between
@@ -95,8 +104,16 @@ class PLSLAM:
             self._map_thread = threading.Thread(target=self._mapping_worker,
                                                 name="plslam-mapper", daemon=True)
             self._map_thread.start()
+            if self.loop_closer is not None:
+                # the loop-closure thread (mapHandler.cpp:1302-1386): BoW
+                # encoding and verification must not hold up the bounded
+                # keyframe queue
+                self._lc_queue = queue.Queue()
+                self._lc_thread = threading.Thread(target=self._lc_worker,
+                                                   name="plslam-loopcloser", daemon=True)
+                self._lc_thread.start()
 
-    # -- mapping thread ----------------------------------------------------
+    # -- worker threads ----------------------------------------------------
 
     def _mapping_worker(self):
         """Pop (pose, features) jobs until the None sentinel
@@ -112,10 +129,37 @@ class PLSLAM:
             finally:
                 self._kf_queue.task_done()
 
+    def _lc_worker(self):
+        """Pop keyframe ids until the None sentinel; a closure's correction
+        is the only step that takes the map lock (``LoopCloser``)."""
+        while True:
+            kf_id = self._lc_queue.get()
+            try:
+                if kf_id is None:
+                    return
+                self._close_loops(kf_id)
+            except BaseException as e:  # surfaced at finish()
+                self._map_errors.append(e)
+            finally:
+                self._lc_queue.task_done()
+
+    def _close_loops(self, kf_id: int):
+        report = self.loop_closer.on_new_keyframe(kf_id)
+        if report:
+            self.loop_reports.append(report)
+
+    def _to_loop_closer(self, kf_id: int):
+        if self._lc_queue is not None:
+            self._lc_queue.put(kf_id)
+        else:
+            self._close_loops(kf_id)
+
     def _insert_keyframe(self, pose, feats):
         # the local BA's copy and write-back overlap the next keyframe's
         # association (mapHandler.cpp:1251-1300)
         self.mapper.add_keyframe(pose, feats, defer_ba=True)
+        if self.loop_closer is not None:
+            self._to_loop_closer(len(self.mapper.map.keyframes) - 1)
 
     def _submit(self, pose, feats):
         if self._kf_queue is not None:
@@ -125,18 +169,22 @@ class PLSLAM:
 
     def insert_keyframe_features(self, pose: np.ndarray, feats, timestamp: float = 0.0):
         """Feature-level keyframe insertion (replay and simulation): the
-        same queue and worker as live tracking, without image extraction."""
+        same queues and workers as live tracking, without image extraction."""
         self.kf_timestamps.append(timestamp)
         if len(self.mapper.map.keyframes) == 0:
             self.mapper.initialize(np.asarray(pose, np.float64), feats)
+            if self.loop_closer is not None:
+                self._to_loop_closer(0)
             return
         self._submit(np.asarray(pose, np.float64), feats)
 
     def wait_until_idle(self):
-        """Block until the keyframe queue has drained, then apply any
-        deferred local-BA result."""
+        """Block until the keyframe and loop-closure queues have drained,
+        then apply any deferred local-BA result."""
         if self._kf_queue is not None:
             self._kf_queue.join()
+        if self._lc_queue is not None:
+            self._lc_queue.join()
         self.mapper.flush_ba()
 
     # -- per-frame ---------------------------------------------------------
@@ -158,7 +206,16 @@ class PLSLAM:
         t0 = time.time()
         il, ir = self._image(img_l), self._image(img_r)
         if not self._initialized:
-            self.mapper.initialize(np.eye(4), self.vo.initialize(il, ir))
+            feats = self.vo.initialize(il, ir)
+            if len(self.mapper.map.keyframes) == 0:
+                self.mapper.initialize(np.eye(4), feats)
+                if self.loop_closer is not None:
+                    self._to_loop_closer(0)
+            else:
+                # resume from a checkpoint: the fresh VO chain starts at the
+                # last restored keyframe, and this frame extends the map
+                self._T_anchor = self.mapper.map.keyframes[-1].T_w_k.copy()
+                self._submit(self._T_anchor.copy(), feats)
             self.kf_timestamps.append(timestamp)
             self._initialized = True
             self._frame_idx += 1
@@ -167,11 +224,13 @@ class PLSLAM:
         sc = self._pack_frame_scalars(res).cpu().numpy()
         is_kf = bool(sc[0] > 0.5)
         if is_kf:
-            pose = sc[5:21].reshape(4, 4).astype(np.float64)
+            pose = self._T_anchor @ sc[5:21].reshape(4, 4).astype(np.float64)
             feats = self.vo.current_features
             self.vo.mark_keyframe()
             self.kf_timestamps.append(timestamp)
             self._submit(pose, feats)
+            if self.config.checkpoint_every_kf > 0:
+                self.maybe_autocheckpoint()
         self.logs.append(FrameLog(frame=self._frame_idx, t_total=time.time() - t0,
                                   n_inliers=int(sc[1]), err=float(sc[2]),
                                   good=bool(sc[3] > 0.5), is_kf=is_kf,
@@ -183,8 +242,8 @@ class PLSLAM:
 
     def finish(self, run_gba: bool = True, mesh=None):
         """finishSLAM + globalBundleAdjustment (app:169-176): drain and
-        join the mapping thread, raise the first error it met, then run
-        the global BA."""
+        join the mapping and loop-closure threads, raise the first error
+        either met, then run the global BA."""
         if mesh is not None:
             raise _not_ported("the distributed GBA (mesh=)", "distribution")
         if self._map_thread is not None:
@@ -192,6 +251,11 @@ class PLSLAM:
             self._map_thread.join()
             self._map_thread = None
             self._kf_queue = None
+        if self._lc_thread is not None:
+            self._lc_queue.put(None)
+            self._lc_thread.join()
+            self._lc_thread = None
+            self._lc_queue = None
         if self._map_errors:
             raise self._map_errors[0]
         if run_gba and len(self.mapper.map.keyframes) >= 3:
@@ -219,8 +283,30 @@ class PLSLAM:
             for log in self.logs:
                 f.write(json.dumps(vars(log)) + "\n")
 
+    # -- checkpoint / resume ----------------------------------------------
+
     def save_checkpoint(self, path: str):
-        raise _not_ported("checkpoints", "checkpoints")
+        """Save the map and loop-closer state; safe mid-run (drains the
+        queues first)."""
+        self.wait_until_idle()
+        save_map(path, self.mapper, loop_closer=self.loop_closer)
 
     def load_checkpoint(self, path: str):
-        raise _not_ported("checkpoints", "checkpoints")
+        """Restore a saved map (of either package) into this pipeline; the
+        next processed frame re-initializes the VO anchored at the last
+        restored keyframe, and GBA and trajectory queries work at once."""
+        self.wait_until_idle()
+        load_map(path, self.mapper, loop_closer=self.loop_closer)
+        self._initialized = False
+
+    def maybe_autocheckpoint(self):
+        """Every ``checkpoint_every_kf`` keyframes of the front end, save
+        ``map_kfNNNNN.npz`` (named after the drained map's keyframe count)
+        into ``checkpoint_dir``."""
+        n = len(self.kf_timestamps)
+        every = self.config.checkpoint_every_kf
+        if every > 0 and n > 0 and n % every == 0:
+            os.makedirs(self.config.checkpoint_dir, exist_ok=True)
+            self.wait_until_idle()
+            self.save_checkpoint(os.path.join(
+                self.config.checkpoint_dir, f"map_kf{len(self.mapper.map.keyframes):05d}.npz"))

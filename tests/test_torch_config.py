@@ -23,7 +23,7 @@ def _fields(obj) -> dict:
 
 
 @pytest.mark.parametrize("source", [None, "config_euroc.yaml", "config_full.yaml"])
-@pytest.mark.parametrize("builder", ["frontend", "tracker", "map_cfg", "ba"])
+@pytest.mark.parametrize("builder", ["frontend", "tracker", "map_cfg", "loop_cfg", "ba"])
 def test_builder_matches_jax(builder, source):
     cfg = PLSLAMConfig() if source is None else PLSLAMConfig.from_yaml(str(CONFIGS / source))
     want = _fields(getattr(cfg, builder)())

@@ -57,3 +57,47 @@ def test_wrappers_raise_on_wrong_dtype(dev):
     with pytest.raises(ValueError):
         cuda_fast.fast_score_nms_batch(torch.zeros((1, 8, 8), device=dev)[:, :, ::2],
                                        torch.zeros(1, device=dev))
+
+
+def test_loop_closer_modules_on_the_card(dev):
+    """The loop closer's device work on the card against the CPU: BoW
+    vectors of a trained vocabulary within 1e-6, the float64 PGO within
+    1e-9, and the verification match through the Hamming kernel."""
+    import numpy as np
+
+    from plslam_tpu_torch.backend import pgo, vocab
+    from plslam_tpu_torch.core import lie
+    from plslam_tpu_torch.ops import matching
+
+    rng = np.random.default_rng(0)
+    corpus = rng.integers(0, 2 ** 32, (600, 8), dtype=np.uint32).view(np.int32)
+    voc = vocab.train_vocabulary(corpus, k=6, depth=2, iters=2)
+    desc = torch.from_numpy(corpus[:150].copy())
+    valid = torch.from_numpy(rng.uniform(size=150) < 0.8)
+    want = vocab.transform(voc, desc, valid)
+    got = vocab.transform(voc.to(dev), desc.to(dev), valid.to(dev)).cpu()
+    assert torch.allclose(got, want, rtol=0, atol=1e-6)
+
+    K = 13
+    xi = torch.from_numpy(rng.normal(0, 0.05, (K - 1, 6)))
+    steps = lie.exp_se3(xi)
+    T = [torch.eye(4, dtype=torch.float64)]
+    for S in steps:
+        T.append(T[-1] @ S)
+    ei = torch.cat([torch.arange(K - 1), torch.tensor([K - 1])])
+    ej = torch.cat([torch.arange(1, K), torch.tensor([0])])
+    g = pgo.PoseGraph(T_w_k=torch.stack(T), fixed=torch.arange(K) == 0,
+                      valid=torch.ones(K, dtype=torch.bool), e_i=ei, e_j=ej,
+                      e_T=torch.cat([steps, torch.eye(4, dtype=torch.float64)[None]]),
+                      e_info=torch.ones(K, dtype=torch.float64),
+                      e_valid=torch.ones(K, dtype=torch.bool))
+    want = pgo.optimize(g, 10).T_w_k
+    got = pgo.optimize(pgo.PoseGraph(*(x.to(dev) for x in g)), 10).T_w_k.cpu()
+    assert torch.allclose(got, want, rtol=0, atol=1e-9)
+
+    d = torch.from_numpy(corpus[:160].copy())
+    mask = torch.ones((160, 160), dtype=torch.bool)
+    n = cuda_hamming.hamming_distance_matrix_cuda.launches
+    got = matching.match_descriptors(d.to(dev), d.to(dev), mask.to(dev), 0.9).idx.cpu()
+    assert cuda_hamming.hamming_distance_matrix_cuda.launches == n + 1
+    assert torch.equal(got, matching.match_descriptors(d, d, mask, 0.9).idx)

@@ -2,7 +2,10 @@
 GBA) on test_pipeline_threads' synthetic scene (376x240, 8 frames, a
 keyframe nearly every frame): the threaded and the inline mapper build the
 same map, the keyframe ATE stays under max(2x the JAX package's, 0.01 m),
-errors on the worker surface at finish(), and what is not ported raises."""
+errors on the worker surface at finish(), and what is not ported raises.
+With loop closure (endpoint lines): the loop-closure thread never blocks
+the keyframe queue, and a feature replay closes a loop through both
+threads."""
 
 import json
 import threading
@@ -133,22 +136,135 @@ def test_plucker_with_loop_closure_raises():
         PLSLAM(cam, PLSLAMConfig(use_line_plucker=True, use_loop_closure=True), device="cpu")
 
 
-@pytest.mark.parametrize("cfg_kw", [
-    dict(use_line_plucker=False), dict(has_refinement=True),
-    dict(use_line_plucker=False, use_loop_closure=True), dict(overlay_every=1),
-    dict(viz_every_kf=1), dict(checkpoint_every_kf=1)])
+@pytest.mark.parametrize("cfg_kw", [dict(overlay_every=1), dict(viz_every_kf=1)])
 def test_not_ported_raises(cfg_kw):
     cam = StereoCamera.create(200.0, 200.0, 160.0, 120.0, 0.11)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         PLSLAM(cam, PLSLAMConfig(multithread_slam=False, **cfg_kw), device="cpu")
 
 
-def test_distributed_gba_and_checkpoints_raise():
+@pytest.mark.parametrize("cfg_kw", [
+    dict(use_line_plucker=False), dict(has_refinement=True),
+    dict(use_line_plucker=False, use_loop_closure=True), dict(checkpoint_every_kf=1)])
+def test_formerly_refused_configs_build(cfg_kw):
+    """Endpoint lines, the keyframe refinement, loop closure and
+    auto-checkpoints are ported: the pipeline builds with each."""
+    cam = StereoCamera.create(200.0, 200.0, 160.0, 120.0, 0.11)
+    slam = PLSLAM(cam, PLSLAMConfig(multithread_slam=False, **cfg_kw), device="cpu")
+    assert (slam.loop_closer is not None) == bool(cfg_kw.get("use_loop_closure"))
+    assert slam.mapper.cfg.plucker_lines == cfg_kw.get("use_line_plucker", True)
+
+
+def test_distributed_gba_raises():
     slam, _, _ = _feature_slam(multithread_slam=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         slam.finish(mesh=object())
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        slam.save_checkpoint("map.npz")
+        slam.global_bundle_adjustment(mesh=object())
+
+
+def test_checkpoint_round_trip(tmp_path):
+    """save_checkpoint mid-run, load_checkpoint into a fresh pipeline: the
+    same keyframes, tables and trajectory."""
+    slam, poses, feats = _feature_slam()
+    for i, (T, f) in enumerate(zip(poses, feats)):
+        slam.insert_keyframe_features(T, f, timestamp=0.1 * i)
+    path = str(tmp_path / "map.npz")
+    slam.save_checkpoint(path)
+    fresh, _, _ = _feature_slam(multithread_slam=False)
+    fresh.load_checkpoint(path)
+    a, b = slam.mapper.map, fresh.mapper.map
+    assert len(b.keyframes) == len(poses)
+    np.testing.assert_array_equal(a.covis, b.covis)
+    assert a.pt_obs == b.pt_obs and a.ls_obs == b.ls_obs
+    np.testing.assert_array_equal(a.pt_desc, b.pt_desc)
+    np.testing.assert_array_equal(np.stack(slam.keyframe_trajectory()),
+                                  np.stack(fresh.keyframe_trajectory()))
+    slam.finish(run_gba=False)
+
+
+def _loop_slam(multithread=True):
+    """The drifting square loop of test_torch_loop (points and endpoint
+    lines) as a feature replay through PLSLAM with loop closure."""
+    from test_torch_loop import SCENARIO_LINES, VOCAB
+
+    cfg = PLSLAMConfig(use_line_plucker=False, use_loop_closure=True,
+                       multithread_slam=multithread, lc_kf_dist=8, lc_nkf_closest=1,
+                       vocabulary_p=VOCAB, min_lm_cov_graph=10 ** 9)
+    tcam = StereoCamera.create(435.2, 435.2, 367.4, 252.2, 0.110074)
+    mcfg = MapConfig(plucker_lines=False, min_lm_cov_graph=10 ** 9, local_ba_kf=4,
+                     **{k: MAP_CFG[k] for k in ("ba_points", "ba_pobs")})
+    slam = PLSLAM(tcam, cfg, mcfg, device="cpu")
+    T_true, T_drift, feats = SCENARIO_LINES
+    return slam, T_true, T_drift, [stereo_features_from_numpy(f, "cpu") for f in feats]
+
+
+def test_loop_closure_feature_replay():
+    """Endpoint mapping with local BA on the mapping thread and loop
+    closure on the loop-closure thread: the revisit closes against KF 0
+    and pulls the last keyframe towards the truth."""
+    slam, T_true, T_drift, feats = _loop_slam()
+    assert slam._lc_thread.name == "plslam-loopcloser"
+    for i, (T, f) in enumerate(zip(T_drift, feats)):
+        slam.insert_keyframe_features(T, f, timestamp=0.1 * i)
+    slam.wait_until_idle()
+    assert len(slam.loop_closer.bow) == len(feats)
+    assert [(r["kf"], r["candidate"]) for r in slam.loop_reports] == [(12, 0)]
+    assert sum(slam.loop_reports[0]["fused"].values()) > 0
+    traj = slam.finish(run_gba=False)
+    assert slam._lc_thread is None and slam._map_errors == []
+    err = np.linalg.norm(traj[-1][:3, 3] - T_true[-1][:3, 3])
+    assert err < 0.5 * np.linalg.norm(T_drift[-1][:3, 3] - T_true[-1][:3, 3])
+
+
+def test_loop_closure_runs_off_the_mapping_worker():
+    """A slow loop closure must not back-pressure the bounded keyframe
+    queue: the mapping worker keeps inserting keyframes while the
+    loop-closure thread is stuck, and every queued job runs by idle."""
+    slam, _, T_drift, feats = _loop_slam()
+    done = []
+    lc_blocked, lc_release = threading.Event(), threading.Event()
+
+    def blocking_lc(kf_id=None):
+        done.append(kf_id)
+        if kf_id == 1:
+            lc_blocked.set()
+            assert lc_release.wait(timeout=120)
+        return None
+
+    slam.loop_closer.on_new_keyframe = blocking_lc
+    n = 8
+    slam.insert_keyframe_features(T_drift[0], feats[0])
+    slam.insert_keyframe_features(T_drift[1], feats[1], timestamp=0.1)
+    assert lc_blocked.wait(timeout=120)
+
+    def feed_rest():
+        for i in range(2, n):
+            slam.insert_keyframe_features(T_drift[i], feats[i], timestamp=0.1 * i)
+        slam._kf_queue.join()
+
+    t = threading.Thread(target=feed_rest, daemon=True)
+    t.start()
+    t.join(timeout=120)
+    stalled = t.is_alive()
+    lc_release.set()
+    assert not stalled, "keyframe feed wedged behind the loop closure"
+    assert len(slam.mapper.map.keyframes) == n
+    slam.wait_until_idle()
+    assert sorted(done) == list(range(n)), done
+    slam.finish(run_gba=False)
+
+
+def test_loop_worker_error_surfaces_at_finish():
+    slam, _, T_drift, feats = _loop_slam()
+
+    def boom(kf_id=None):
+        raise RuntimeError("loop closure failed")
+
+    slam.loop_closer.on_new_keyframe = boom
+    slam.insert_keyframe_features(T_drift[0], feats[0])
+    with pytest.raises(RuntimeError, match="loop closure failed"):
+        slam.finish(run_gba=False)
 
 
 def test_launch_counter_is_thread_safe():
