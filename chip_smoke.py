@@ -1,13 +1,20 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (``plslam_tpu_torch``) on one GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py                     # every phase
+    python3 chip_smoke.py --kernels           # phases 1-3 only
 
 Phases, each reported on its own lines:
   1. device: fails without CUDA; prints nvidia-smi's name and power limit;
   2. build: compiles the CUDA kernels from ``plslam_tpu_torch/csrc``;
-  3. kernels: each kernel at the VO path's shapes against its plain
-     PyTorch version on the card (bit-exact), with CUDA-event timings;
+  3. kernels: each kernel at the VO path's shapes (and the Hamming kernel
+     at the mapper's and loop closer's) against its plain PyTorch version
+     on the card (bit-exact); per shape its device time (a CUDA graph of
+     100 back-to-back launches between CUDA events), its host time (one
+     wrapper call between CUDA events), the plain version's time, the
+     library yardstick's device time (one PyTorch call for the same
+     function, never called by the port), the bound (bytes or operations
+     over the H100's published peaks) and the share bound / device time;
   4. VO path: ``VisualOdometry`` at the bench configuration (752x480,
      1200 points, 256 line slots) on the synthetic scene; every frame must
      track, ATE must stay under the floor, every kernel must have launched;
@@ -30,9 +37,11 @@ Phases, each reported on its own lines:
      the odometry's, real fusion, a multi-chunk endpoint GBA at finish, the
      Hamming kernel launched from the loop-closure thread;
 then the summary lines, the kernel summary as one JSON line, and the
-result as the last line.  Any failure raises and exits non-zero.
+result as the last line.  Any failure raises and exits non-zero, and so
+does an import of JAX or of the JAX package (``plslam_tpu``).
 """
 
+import argparse
 import functools
 import json
 import logging
@@ -79,13 +88,40 @@ RING_REVISIT = 134     # keyframes from here overlap the KF-0 sector
 TIMING_REPS = 25
 TIMING_WARMUP = 3
 
+# Phase 3's timing.  Device time: TIMED_LAUNCHES back-to-back calls,
+# captured once in a CUDA graph and replayed between two CUDA events.
+TIMED_LAUNCHES = 100
+GRAPH_REPLAYS = 5
+PLAIN_REPS = 10
+# Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
+# device memory, dense int8 tensor cores, float32 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+INT8_OPS_PER_S = 1979e12
+F32_OPS_PER_S = 67e12
+# The float32 peak counts an FMA as two operations at 128 per clock per SM;
+# an add issues at that rate, min, max and compare at 64 per clock per SM
+# (the CUDA C++ guide's throughput table for compute capability 9.0).
+F32_ADD_PER_S = F32_OPS_PER_S / 2
+F32_MINMAX_PER_S = F32_OPS_PER_S / 4
+# FAST + NMS float32 operations (csrc/fast.cu): every pixel pays the
+# compass test (4 differences, 8 compares) and the 3x3 NMS (9 max, 2
+# compares); a pixel that passes the compass test pays 12 more ring
+# differences, 2 x 57 min/max for the bright and dark window folds, bright
+# vs dark, and the threshold (compare + select).
+FAST_PX_OPS = (4, 8 + 11)
+FAST_CANDIDATE_OPS = (12, 2 * 57 + 1 + 2)
+# Hamming matrices of one VO frame: stereo and f2f, points and lines
+HAMMING_VO = {(1200, 1200): 2, (256, 256): 2}
+HAMMING_SHAPES = ((1200, 1200), (256, 256), (2048, 1200), (160, 160), (24, 24))
+
 
 def say(msg: str) -> None:
     print(msg, flush=True)
 
 
 def median_ms(fn, reps: int = TIMING_REPS) -> float:
-    """Median CUDA-event time of fn() over reps calls, after warm-up."""
+    """Median CUDA-event time of single calls of fn, after warm-up: the
+    event pair brackets the host's work of one call too (``host_ms``)."""
     for _ in range(TIMING_WARMUP):
         fn()
     times = []
@@ -100,6 +136,78 @@ def median_ms(fn, reps: int = TIMING_REPS) -> float:
     return float(np.median(times))
 
 
+def graph_ms(fn, n: int = TIMED_LAUNCHES) -> float:
+    """Device time per call of fn: n back-to-back calls captured in one
+    CUDA graph, replayed between two CUDA events, over n (median of
+    GRAPH_REPLAYS replays after one warm replay).  Each captured call keeps
+    its own output, as a caller's fresh allocation: n outputs exceed the
+    50 MB L2 at the main path's shapes, so the writes reach device memory."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph, outs = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            outs.append(fn())
+    times = []
+    for _ in range(GRAPH_REPLAYS + 1):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph, outs
+    torch.cuda.empty_cache()
+    return float(np.median(times[1:]))
+
+
+def stream_ms(fn, reps: int = PLAIN_REPS) -> float:
+    """CUDA-event time per call of reps calls of fn issued in a row."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, *ops: tuple[float, float]) -> tuple[float, str]:
+    """Least time (ms) the card could take: the larger of the bytes over the
+    memory rate and the operations, (count, peak rate for their type) pairs,
+    each over its rate."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_ops = 1e3 * sum(n / rate for n, rate in ops)
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def fast_ops(imgs: torch.Tensor, thr: torch.Tensor) -> tuple[tuple[float, float], ...]:
+    """FAST + NMS's float32 operations on these images, as (count, rate)
+    pairs: the compass test of csrc/fast.cu's first pass, in plain torch,
+    counts the pixels that go on to the window folds (zero outside the
+    image, as the kernel pads)."""
+    c = torch.nn.functional.pad(imgs, (3, 3, 3, 3))
+    H, W = imgs.shape[1:]
+    ctr = c[:, 3:3 + H, 3:3 + W]
+    e0, e8 = c[:, 0:H, 3:3 + W] - ctr, c[:, 6:6 + H, 3:3 + W] - ctr
+    e4, e12 = c[:, 3:3 + H, 6:6 + W] - ctr, c[:, 3:3 + H, 0:W] - ctr
+    th = thr[:, None, None]
+    bright = ((e0 > th) | (e8 > th)) & ((e4 > th) | (e12 > th))
+    dark = ((e0 < -th) | (e8 < -th)) & ((e4 < -th) | (e12 < -th))
+    n_px, n_cand = imgs.numel(), int((bright | dark).sum())
+    adds = FAST_PX_OPS[0] * n_px + FAST_CANDIDATE_OPS[0] * n_cand
+    minmax = FAST_PX_OPS[1] * n_px + FAST_CANDIDATE_OPS[1] * n_cand
+    return (adds, F32_ADD_PER_S), (minmax, F32_MINMAX_PER_S)
+
+
 def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     torch.cuda.synchronize()
     if got.shape != want.shape or got.dtype != want.dtype:
@@ -111,38 +219,128 @@ def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
-def phase_kernels(dev, levels, scene_imgs, card):
-    """Each kernel vs its plain version at the main path's shapes."""
+def time_shape(shape, kernel, plain, library, nbytes, *ops) -> dict:
+    """One kernel at one shape: device, host, plain and library times and
+    the bound, all in ms.  ``library`` maps a name to one PyTorch call that
+    computes the same function (never called by the port)."""
+    t_bound, by = bound(nbytes, *ops)
+    row = dict(shape=list(shape), device_ms=graph_ms(kernel), host_ms=median_ms(kernel),
+               plain_ms=stream_ms(plain), bound_ms=t_bound, bound_by=by, bytes=int(nbytes))
+    lib = {k: graph_ms(fn) for k, fn in library.items()}
+    row["library"] = lib
+    row["library_ms"] = min(lib.values()) if lib else None
+    row["share"] = t_bound / row["device_ms"]
+    return row
+
+
+def summarize(name: str, rows: list[dict], per_frame: list[int], errs: list[float],
+              **info) -> dict:
+    """A kernel's line of the JSON summary: times summed over one VO
+    frame's calls (``per_frame`` calls of each row's shape), every shape's
+    row beside them."""
+    def total(key):
+        vals = [(r[key], k) for r, k in zip(rows, per_frame) if k]
+        return None if any(v is None for v, _ in vals) else sum(v * k for v, k in vals)
+
+    dev, bnd = total("device_ms"), total("bound_ms")
+    largest = max((r for r, k in zip(rows, per_frame) if k), key=lambda r: r["bound_ms"])
+    return dict(name=name, route="cuda", **info, max_abs_err=max(errs), ms=dev,
+                device_ms=dev, host_ms=total("host_ms"), plain_ms=total("plain_ms"),
+                library_ms=total("library_ms"), bound_ms=bnd, bound_by=largest["bound_by"],
+                share=bnd / dev, calls_per_vo_frame=sum(per_frame), shapes=rows)
+
+
+def hamming_library(d1: torch.Tensor, d2: torch.Tensor) -> dict:
+    """The Hamming matrix as one PyTorch call, on operands unpacked
+    beforehand: fp16 +-1 addmm (128 - dot / 2, exact: integer sums <= 256)
+    and cdist with p=0 on {0, 1} floats.  Each is checked once."""
+    from plslam_tpu_torch.ops.cuda_hamming import hamming_plain
+    from plslam_tpu_torch.ops.descriptors import unpack_bits
+
+    b1, b2 = unpack_bits(d1), unpack_bits(d2)
+    s1, s2 = (2 * b1 - 1).half(), (2 * b2 - 1).half().t()
+    c = torch.full((1,), 128.0, dtype=torch.float16, device=d1.device)
+    f1, f2 = b1.float(), b2.float()
+    lib = {"addmm_fp16": lambda: torch.addmm(c, s1, s2, alpha=-0.5),
+           "cdist_p0": lambda: torch.cdist(f1, f2, p=0)}
+    want = hamming_plain(d1, d2)
+    for k, fn in lib.items():
+        if not torch.equal(fn().round().int(), want):
+            raise AssertionError(f"hamming library call {k} is not the Hamming matrix")
+    return lib
+
+
+def main_path_corners(levels, pair):
+    """The patch gathers' inputs as the VO frame makes them from this pair:
+    ORB's (2, 1200) corners around the frame's FAST keypoints on the blurred
+    pair, LBD's (4, 1536) along its segments on gx and gy of both images."""
+    from plslam_tpu_torch.frontend.frame import FrontendConfig
+    from plslam_tpu_torch.ops import fast, lbd, lines, orb
+    from plslam_tpu_torch.ops.image import blur, sobel
+    from plslam_tpu_torch.ops.patches import corners
+
+    cfg = FrontendConfig()
+    kp = fast.detect_pyramid_batch(levels, cfg.fast_th, cfg.n_points, cfg.edge_th,
+                                   cfg.scale_factor)
+    y0, x0 = corners(kp.xy, orb.CENTER)
+    seg = lines.detect_segments(pair, lines.LineDetectorConfig(max_out=cfg.n_lines,
+                                                               n_orient=cfg.line_orient_bins))
+    ly, lx = corners(lbd._patch_centers(seg.sp, seg.ep).reshape(2, -1, 2), lbd.CENTER)
+    gx, gy = sobel(blur(pair, 1.4))
+    return {"orb": (blur(pair, 2.0).contiguous(), y0, x0),
+            "lbd": (torch.cat([gx, gy]).contiguous(), torch.cat([ly, ly]), torch.cat([lx, lx]))}
+
+
+def phase_kernels(dev, levels, pair, card):
+    """Each kernel vs its plain version at the main path's shapes, with its
+    device time, host time, bound and library yardstick."""
     from plslam_tpu_torch.ops import cuda_fast, cuda_hamming, cuda_patches
 
     gen = torch.Generator().manual_seed(0)
-    H, W = scene_imgs.shape[1:]
+    H, W = pair.shape[1:]
     report = []
 
-    # patch gather: ORB (2, 1200) on the image pair, LBD (4, 1536) on gx/gy
-    errs, ms, plain_ms = [], 0.0, 0.0
-    for name, B, N in (("orb", 2, 1200), ("lbd", 4, 1536)):
-        imgs = torch.rand((B, H, W), generator=gen).mul_(255).to(dev)
-        y0 = torch.randint(-23 - 8, H - 25 + 8, (B, N), generator=gen,
-                           dtype=torch.int32).to(dev)
-        x0 = torch.randint(-23 - 8, W - 25 + 8, (B, N), generator=gen,
-                           dtype=torch.int32).to(dev)
-        got = cuda_patches.gather_patches_batch(imgs, y0, x0, 48)
-        want = cuda_patches.gather_patches_plain(imgs, y0, x0, 48)
+    # patch gather: exact on the main path's inputs and on the same stacks
+    # with corners up to 8 px past every edge; timed on the main path's
+    errs, rows, P = [], [], 48
+    for name, (imgs, y0, x0) in main_path_corners(levels, pair).items():
+        B, N = y0.shape
+        wide_y = torch.randint(-P - 8, H + 8, (B, N), generator=gen, dtype=torch.int32).to(dev)
+        wide_x = torch.randint(-P - 8, W + 8, (B, N), generator=gen, dtype=torch.int32).to(dev)
+        errs.append(check_equal(f"patches {name} off the edges",
+                                cuda_patches.gather_patches_batch(imgs, wide_y, wide_x, P),
+                                cuda_patches.gather_patches_plain(imgs, wide_y, wide_x, P)))
+        got = cuda_patches.gather_patches_batch(imgs, y0, x0, P)
+        want = cuda_patches.gather_patches_plain(imgs, y0, x0, P)
         errs.append(check_equal(f"patches {name}", got, want))
-        t = median_ms(lambda: cuda_patches.gather_patches_batch(imgs, y0, x0, 48))
-        tp = median_ms(lambda: cuda_patches.gather_patches_plain(imgs, y0, x0, 48))
-        ms, plain_ms = ms + t, plain_ms + tp
-        say(f"kernel patches {name} ({B},{N},48,48): exact; {t:.4f} ms vs plain {tp:.4f} ms on {card}")
-    report.append(dict(name="gather_patches_batch", route="cuda",
-                       source="plslam_tpu_torch/csrc/patches.cu",
-                       replaces="plslam_tpu/ops/pallas_patches.py:100",
-                       max_abs_err=max(errs), ms=ms, plain_ms=plain_ms))
+        inside = float(((y0 >= 0) & (y0 <= H - P) & (x0 >= 0) & (x0 <= W - P)).float().mean())
+        # the library yardstick: one advanced-indexing gather, its padded
+        # image and index tensors built beforehand
+        padded = torch.nn.functional.pad(imgs, (P, P, P, P))
+        ar = torch.arange(P, device=dev)
+        ys = (torch.clamp(y0.long(), -P, H)[..., None] + P + ar)[..., :, None]
+        xs = (torch.clamp(x0.long(), -P, W)[..., None] + P + ar)[..., None, :]
+        bi = torch.arange(B, device=dev)[:, None, None, None]
+        nbytes = imgs.numel() * 4 + 2 * y0.numel() * 4 + want.numel() * 4
+        row = time_shape((B, N, P, P),
+                         lambda: cuda_patches.gather_patches_batch(imgs, y0, x0, P),
+                         lambda: cuda_patches.gather_patches_plain(imgs, y0, x0, P),
+                         {"index": lambda: padded[bi, ys, xs]}, nbytes)
+        row["patches_inside"] = inside
+        rows.append(row)
+        say(f"kernel patches {name} {tuple(want.shape)}: exact; device {row['device_ms']:.6f} ms "
+            f"(bound {row['bound_ms']:.6f} ms by {row['bound_by']}, share "
+            f"{row['share']:.3f}; {inside:.3f} of the patches wholly inside), library "
+            f"{row['library_ms']:.6f} ms, host {row['host_ms']:.6f} ms, plain "
+            f"{row['plain_ms']:.6f} ms on {card}")
+    report.append(summarize("gather_patches_batch", rows, [1, 1], errs,
+                            source="plslam_tpu_torch/csrc/patches.cu",
+                            replaces="plslam_tpu/ops/pallas_patches.py:100"))
 
     # FAST score + NMS on the four pyramid levels of the scene pair and of
     # uniform noise (dense corners); raw exact off the 3-px frame, nms off
     # the 4-px frame (the kernel zero-pads where the plain form wraps)
-    errs, ms, plain_ms = [], 0.0, 0.0
+    errs, rows = [], []
     thr = torch.full((2,), 20.0, device=dev)
     for li, lvl in enumerate(levels):
         noise = torch.rand(lvl.shape, generator=gen).mul_(255).to(dev)
@@ -154,36 +352,48 @@ def phase_kernels(dev, levels, scene_imgs, card):
             errs.append(check_equal(f"fast nms L{li} {kind}", nms[:, 4:-4, 4:-4],
                                     nms_p[:, 4:-4, 4:-4]))
         imgs = lvl.contiguous()
-        t = median_ms(lambda: cuda_fast.fast_score_nms_batch(imgs, thr))
-        tp = median_ms(lambda: cuda_fast.fast_score_nms_plain(imgs, thr))
-        ms, plain_ms = ms + t, plain_ms + tp
-        say(f"kernel fast L{li} {tuple(lvl.shape)}: exact; {t:.4f} ms vs plain {tp:.4f} ms on {card}")
-    report.append(dict(name="fast_score_nms_batch", route="cuda",
-                       source="plslam_tpu_torch/csrc/fast.cu",
-                       replaces="plslam_tpu/ops/pallas_fast.py:82",
-                       max_abs_err=max(errs), ms=ms, plain_ms=plain_ms))
+        px = imgs.numel()
+        row = time_shape(tuple(imgs.shape), lambda: cuda_fast.fast_score_nms_batch(imgs, thr),
+                         lambda: cuda_fast.fast_score_nms_plain(imgs, thr), {},
+                         12 * px + 4 * thr.numel(), *fast_ops(imgs, thr))
+        # the kernel's work depends on the data: noise makes most pixels candidates
+        row["device_ms_noise"] = graph_ms(lambda: cuda_fast.fast_score_nms_batch(noise, thr))
+        row["bound_ms_noise"] = bound(12 * px + 4 * thr.numel(), *fast_ops(noise, thr))[0]
+        rows.append(row)
+        say(f"kernel fast L{li} {tuple(imgs.shape)}: exact; device {row['device_ms']:.6f} ms "
+            f"(bound {row['bound_ms']:.6f} ms by {row['bound_by']}, share "
+            f"{row['share']:.3f}; on noise {row['device_ms_noise']:.6f} ms, bound "
+            f"{row['bound_ms_noise']:.6f} ms), no single "
+            f"PyTorch call, host {row['host_ms']:.6f} ms, plain {row['plain_ms']:.6f} ms "
+            f"on {card}")
+    report.append(summarize("fast_score_nms_batch", rows, [1] * len(rows), errs,
+                            source="plslam_tpu_torch/csrc/fast.cu",
+                            replaces="plslam_tpu/ops/pallas_fast.py:82"))
 
     # Hamming: stereo + f2f, points 1200x1200 and lines 256x256 (2 each per
-    # VO frame, summed into ms); timed apart: Map2KF against a
-    # 2048-candidate local map (SLAM paths) and the loop verification of
-    # two ring keyframes, points 160x160 and lines 24x24 (loop path)
-    errs, ms, plain_ms = [], 0.0, 0.0
-    for n1, n2 in ((1200, 1200), (256, 256), (2048, 1200), (160, 160), (24, 24)):
+    # VO frame); beside them Map2KF against a 2048-candidate local map (SLAM
+    # paths) and the loop verification of two ring keyframes, points
+    # 160x160 and lines 24x24 (loop path)
+    errs, rows = [], []
+    for n1, n2 in HAMMING_SHAPES:
         d1 = torch.randint(-2**31, 2**31, (n1, 8), generator=gen, dtype=torch.int64)
         d2 = torch.randint(-2**31, 2**31, (n2, 8), generator=gen, dtype=torch.int64)
         d1, d2 = d1.to(torch.int32).to(dev), d2.to(torch.int32).to(dev)
         got = cuda_hamming.hamming_distance_matrix_cuda(d1, d2)
         want = cuda_hamming.hamming_plain(d1, d2)
         errs.append(check_equal(f"hamming {n1}x{n2}", got, want))
-        t = median_ms(lambda: cuda_hamming.hamming_distance_matrix_cuda(d1, d2))
-        tp = median_ms(lambda: cuda_hamming.hamming_plain(d1, d2))
-        if n1 in (1200, 256) and n1 == n2:
-            ms, plain_ms = ms + 2 * t, plain_ms + 2 * tp
-        say(f"kernel hamming {n1}x{n2}: exact; {t:.4f} ms vs plain {tp:.4f} ms on {card}")
-    report.append(dict(name="hamming_distance_matrix_cuda", route="cuda",
-                       source="plslam_tpu_torch/csrc/hamming.cu",
-                       replaces="plslam_tpu/ops/pallas_hamming.py:45",
-                       max_abs_err=max(errs), ms=ms, plain_ms=plain_ms))
+        row = time_shape((n1, n2), lambda: cuda_hamming.hamming_distance_matrix_cuda(d1, d2),
+                         lambda: cuda_hamming.hamming_plain(d1, d2), hamming_library(d1, d2),
+                         (n1 + n2) * 32 + n1 * n2 * 4, (2.0 * n1 * n2 * 256, INT8_OPS_PER_S))
+        rows.append(row)
+        say(f"kernel hamming {n1}x{n2}: exact; device {row['device_ms']:.6f} ms (bound "
+            f"{row['bound_ms']:.6f} ms by {row['bound_by']}, share {row['share']:.3f}), "
+            f"library {row['library']} ms, host {row['host_ms']:.6f} ms, plain "
+            f"{row['plain_ms']:.6f} ms on {card}")
+    per_frame = [HAMMING_VO.get(s, 0) for s in HAMMING_SHAPES]
+    report.append(summarize("hamming_distance_matrix_cuda", rows, per_frame, errs,
+                            source="plslam_tpu_torch/csrc/hamming.cu",
+                            replaces="plslam_tpu/ops/pallas_hamming.py:45"))
     return report
 
 
@@ -735,7 +945,18 @@ def phase_loop_closure(dev, smi):
     return by_thread, kf_per_s
 
 
-def main() -> int:
+def assert_no_jax() -> None:
+    """The port imports nothing of JAX or of the JAX package."""
+    bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "plslam_tpu"))
+    if bad:
+        raise AssertionError(f"modules of JAX or of the JAX package were imported: {bad}")
+
+
+def main(argv=()) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernels", action="store_true",
+                    help="stop after phase 3 and print its kernel summary")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
     dev = torch.device("cuda:0")
@@ -751,6 +972,7 @@ def main() -> int:
     from plslam_tpu_torch.ops import cuda_lib
     from plslam_tpu_torch.ops.image import build_pyramid
 
+    assert_no_jax()
     build = cuda_lib.load()
     say(f"build: {build.seconds:.2f} s -> {build.path.name}")
     for line in build.log.splitlines():
@@ -767,6 +989,10 @@ def main() -> int:
     levels = build_pyramid(pair, 4, 1.2)
 
     report = phase_kernels(dev, levels, pair, smi)
+    if args.kernels:
+        assert_no_jax()
+        say(json.dumps({"kernels": report}))
+        return 0
     launches, fps, ate = phase_main_path(dev, scene, poses, frames)
     slam_launches, slam_fps, slam_ate = phase_slam(dev, scene, smi)
     lm_ips = phase_local_ba(dev, smi)
@@ -778,8 +1004,7 @@ def main() -> int:
         k["launches"] = by_path["vo"] + sum(sum(v.values()) for p, v in by_path.items()
                                             if p != "vo")
         k["launches_by_path"] = by_path
-    if "jax" in sys.modules:
-        raise AssertionError("jax was imported")
+    assert_no_jax()
     say(f"main path: {fps:.3f} frames/s, ATE {ate:.6f} m on {smi}")
     say(f"slam path: {slam_fps:.3f} frames/s, keyframe ATE {slam_ate:.6f} m; local BA "
         f"{lm_ips:.3f} LM iterations/s on {smi}")
@@ -792,4 +1017,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

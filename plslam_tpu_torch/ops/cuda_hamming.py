@@ -1,5 +1,5 @@
-"""256-bit Hamming distance matrix: CUDA kernel ``csrc/hamming.cu`` and
-its plain twin.
+"""256-bit Hamming distance matrix: CUDA kernel ``csrc/hamming.cu`` (the
+inner product on the tensor cores) and its plain twin.
 
 Counterpart of ``plslam_tpu/ops/pallas_hamming.py``
 (``hamming_distance_matrix_pallas``).  CUDA tensors go to the kernel; CPU
@@ -38,4 +38,3 @@ def hamming_distance_matrix_cuda(d1: torch.Tensor, d2: torch.Tensor) -> torch.Te
     cuda_lib.check(err, "hamming")
     hamming_distance_matrix_cuda.count()
     return out
-

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
-All kernels compile with nvcc into one shared library with a plain C
-interface, loaded with ctypes; no PyTorch headers, so a build takes
-seconds.  The library goes to ``plslam_tpu_torch/_build/`` under a name
-that hashes the sources and flags, so an edited source rebuilds.  The
-build happens on first use, never at import: the CPU tests import every
-module on machines without nvcc.
+Each source compiles with its own nvcc, all started together, and the
+objects link into one shared library with a plain C interface, loaded
+with ctypes; no PyTorch headers, so a build takes seconds.  The library
+goes to ``plslam_tpu_torch/_build/`` under a name that hashes the sources
+and flags, so an edited source rebuilds.  ``csrc/probe/`` holds
+measurement probes, built apart by their scripts.  The build happens on first use,
+never at import: the CPU tests import every module on machines without
+nvcc.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -66,30 +68,46 @@ def _sources() -> list[Path]:
     return srcs
 
 
-@functools.lru_cache(maxsize=None)
-def load() -> KernelBuild:
-    """Compile (if needed) and load the kernel library."""
-    srcs = _sources()
+def build(srcs: list[Path], stem: str) -> tuple[Path, float, str]:
+    """Compile srcs, one nvcc each, all started together, and link them
+    into ``_build/<stem>_<hash>.so`` unless that library exists.  The hash
+    covers the flags and every source under ``csrc/`` (a probe includes
+    the kernels' sources).  Returns the library's path, the seconds taken
+    and nvcc's log."""
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
-    for s in srcs:
-        h.update(s.name.encode())
+    for s in sorted(CSRC_DIR.rglob("*.cu")):
+        h.update(str(s.relative_to(CSRC_DIR)).encode())
         h.update(s.read_bytes())
-    path = BUILD_DIR / f"libplslam_kernels_{h.hexdigest()[:16]}.so"
+    path = BUILD_DIR / f"{stem}_{h.hexdigest()[:16]}.so"
     log_path = path.with_suffix(".log")
     t0 = time.perf_counter()
     if not path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, srcs)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-        log_path.write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, path)
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+            nvcc = _nvcc()
+            objs = [os.path.join(tmp, f"{s.stem}.o") for s in srcs]
+            jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)] for o, s in zip(objs, srcs)]
+            procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                      text=True) for cmd in jobs]
+            runs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in zip(jobs, procs)]
+            link = [nvcc, "-shared", "-o", os.path.join(tmp, "lib.so"), *objs]
+            if all(rc == 0 for _, _, rc in runs):
+                p = subprocess.run(link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                   text=True)
+                runs.append((link, p.stdout, p.returncode))
+            for cmd, out, rc in runs:
+                if rc != 0:
+                    raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}")
+            log_path.write_text("".join(out for _, out, _ in runs))
+            os.replace(os.path.join(tmp, "lib.so"), path)
     seconds = time.perf_counter() - t0
+    return path, seconds, log_path.read_text() if log_path.exists() else ""
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> KernelBuild:
+    """Compile (if needed) and load the kernel library."""
+    path, seconds, log = build(_sources(), "libplslam_kernels")
     lib = ctypes.CDLL(str(path))
     for name, argtypes in SIGNATURES.items():
         fn = getattr(lib, name)
@@ -97,7 +115,6 @@ def load() -> KernelBuild:
         fn.restype = ctypes.c_int
     lib.plslam_error_string.argtypes = [ctypes.c_int]
     lib.plslam_error_string.restype = ctypes.c_char_p
-    log = log_path.read_text() if log_path.exists() else ""
     return KernelBuild(lib, path, seconds, log)
 
 

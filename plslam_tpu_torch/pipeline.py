@@ -25,14 +25,13 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from plslam_tpu.io.trajectory import save_tum
-
 from . import config as C
 from .backend.loop import LoopCloser
 from .backend.mapping import MapConfig, MapHandler
 from .config import PLSLAMConfig
 from .core.camera import StereoCamera
 from .io.checkpoint import load_map, save_map
+from .io.trajectory import save_tum
 from .vo import VisualOdometry
 
 
@@ -55,13 +54,14 @@ class FrameLog:
 
 
 class PLSLAM:
-    """Stereo point+line SLAM on ``device``.  With
+    """Stereo point+line SLAM on ``device`` (the card unless the caller
+    asks for the CPU).  With
     ``config.multithread_slam`` (the default) mapping runs on a worker
     thread fed by a bounded keyframe queue, and loop closure on a second
     worker fed by an unbounded keyframe-id queue."""
 
     def __init__(self, cam: StereoCamera, config: PLSLAMConfig | None = None,
-                 map_cfg: MapConfig | None = None, *, device):
+                 map_cfg: MapConfig | None = None, *, device="cuda"):
         self.config = cfg = config or PLSLAMConfig()
         if cfg.use_line_plucker and cfg.use_loop_closure:
             raise ValueError(

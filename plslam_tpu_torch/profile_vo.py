@@ -28,7 +28,7 @@ from .io import SyntheticScene, circular_trajectory
 from .vo import VisualOdometry, match_and_track
 
 
-HAND_WRITTEN = ("gather_patches_kernel", "fast_score_nms_kernel", "hamming_kernel")
+HAND_WRITTEN = ("gather_patches_kernel", "fast_score_nms_kernel", "hamming_mma_kernel")
 
 
 def _device_us(evt) -> float:

@@ -94,10 +94,11 @@ def fresh_state(feats: StereoFeatures, fast_th: float, dtype,
 
 
 class VisualOdometry:
-    """Host-side driver; all sequential state lives on ``device``."""
+    """Host-side driver; all sequential state lives on ``device`` (the
+    card unless the caller asks for the CPU)."""
 
     def __init__(self, cam: StereoCamera, fcfg: FrontendConfig = FrontendConfig(),
-                 tcfg: TrackerConfig = TrackerConfig(), *, device,
+                 tcfg: TrackerConfig = TrackerConfig(), *, device="cuda",
                  dtype=torch.float32, adaptative_fast: bool = True,
                  use_motion_model: bool = False, **fast_params):
         self.cam = cam

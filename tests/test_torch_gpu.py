@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain versions on the card.
 
 Marked ``gpu``; each test skips when no CUDA device is present.  On a
-machine with one:  python -m pytest -m gpu tests/test_torch_gpu.py
+machine with one (``--noconftest``: its tests/conftest.py imports jax):
+    python -m pytest -m gpu --noconftest tests/test_torch_gpu.py
 """
 
 import pytest
@@ -19,35 +20,89 @@ def dev():
     return torch.device("cuda:0")
 
 
-def test_patch_gather_kernel(dev):
-    g = torch.Generator().manual_seed(0)
-    imgs = torch.rand((3, 70, 101), generator=g).to(dev)
-    y0 = torch.randint(-60, 80, (3, 41), generator=g, dtype=torch.int32).to(dev)
-    x0 = torch.randint(-60, 110, (3, 41), generator=g, dtype=torch.int32).to(dev)
+@pytest.mark.parametrize("B,H,W,N", [(2, 480, 752, 1200), (4, 480, 752, 1536),
+                                     (3, 376, 1241, 300), (1, 70, 101, 41)])
+def test_patch_gather_kernel(dev, B, H, W, N):
+    """ORB and LBD shapes, a KITTI-wide stack and B = 1; corners up to P px
+    outside every edge."""
+    P = 48
+    g = torch.Generator().manual_seed(N)
+    imgs = torch.rand((B, H, W), generator=g).to(dev)
+    y0 = torch.randint(-2 * P, H + P, (B, N), generator=g, dtype=torch.int32).to(dev)
+    x0 = torch.randint(-2 * P, W + P, (B, N), generator=g, dtype=torch.int32).to(dev)
     n = cuda_patches.gather_patches_batch.launches
-    got = cuda_patches.gather_patches_batch(imgs, y0, x0, 48)
+    got = cuda_patches.gather_patches_batch(imgs, y0, x0, P)
     assert cuda_patches.gather_patches_batch.launches == n + 1
-    assert torch.equal(got, cuda_patches.gather_patches_plain(imgs, y0, x0, 48))
+    assert torch.equal(got, cuda_patches.gather_patches_plain(imgs, y0, x0, P))
 
 
-@pytest.mark.parametrize("H,W", [(120, 188), (83, 131), (8, 8)])
-def test_fast_kernel(dev, H, W):
-    g = torch.Generator().manual_seed(H)
-    imgs = torch.rand((2, H, W), generator=g).mul_(255).to(dev)
-    thr = torch.tensor([20.0, 7.5], device=dev)
+@pytest.mark.parametrize("B,H,W", [(2, 480, 752), (2, 400, 627), (2, 333, 522), (2, 278, 435),
+                                   (2, 376, 1241), (1, 120, 188), (2, 83, 131), (1, 8, 8),
+                                   (1, 17, 33)])
+@pytest.mark.parametrize("kind", ["noise", "blobs", "flat"])
+def test_fast_kernel(dev, B, H, W, kind):
+    """The VO pyramid's four levels, a KITTI-wide pair, B = 1 and tiles cut
+    by the image edge; dense corners (noise), sparse corners on a flat
+    background (blobs) and no corners (flat)."""
+    g = torch.Generator().manual_seed(H * W)
+    if kind == "noise":
+        imgs = torch.rand((B, H, W), generator=g).mul_(255)
+    else:
+        imgs = torch.full((B, H, W), 30.0)
+        if kind == "blobs":
+            mask = torch.rand((B, H, W), generator=g) < 0.02
+            imgs = torch.where(mask, torch.rand((B, H, W), generator=g) * 200 + 50, imgs)
+    imgs = imgs.to(dev)
+    thr = torch.tensor([20.0, 7.5][:B], device=dev)
+    n = cuda_fast.fast_score_nms_batch.launches
     raw, nms = cuda_fast.fast_score_nms_batch(imgs, thr)
+    assert cuda_fast.fast_score_nms_batch.launches == n + 1
     raw_p, nms_p = cuda_fast.fast_score_nms_plain(imgs, thr)
     assert torch.equal(raw[:, 3:-3, 3:-3], raw_p[:, 3:-3, 3:-3])
     assert torch.equal(nms[:, 4:-4, 4:-4], nms_p[:, 4:-4, 4:-4])
 
 
-@pytest.mark.parametrize("n1,n2", [(1200, 1200), (37, 300), (1, 1)])
+@pytest.mark.parametrize("n1,n2", [(1200, 1200), (2048, 1200), (256, 256), (160, 160),
+                                   (24, 24), (37, 300), (1, 1), (0, 5), (5, 0)])
 def test_hamming_kernel(dev, n1, n2):
-    g = torch.Generator().manual_seed(n1)
-    d1 = torch.randint(-2**31, 2**31, (n1, 8), generator=g).to(torch.int32).to(dev)
-    d2 = torch.randint(-2**31, 2**31, (n2, 8), generator=g).to(torch.int32).to(dev)
+    g = torch.Generator().manual_seed(n1 * 7 + n2)
+    d1 = torch.randint(-2**31, 2**31, (n1, 8), generator=g).to(torch.int32)
+    d2 = torch.randint(-2**31, 2**31, (n2, 8), generator=g).to(torch.int32)
+    # all-ones and all-zeros words in a few rows
+    d1[:n1 // 3] = -1
+    d2[n2 // 2:n2 // 2 + 3] = 0
+    d1, d2 = d1.to(dev), d2.to(dev)
+    got = cuda_hamming.hamming_distance_matrix_cuda(d1, d2)
+    assert got.shape == (n1, n2) and got.dtype == torch.int32
+    assert torch.equal(got, cuda_hamming.hamming_plain(d1, d2))
+
+
+@pytest.mark.parametrize("word", [-1, 0])
+def test_hamming_kernel_constant_words(dev, word):
+    """All-ones against all-zeros words: every distance 0 or 256."""
+    d1 = torch.full((70, 8), word, dtype=torch.int32, device=dev)
+    d2 = torch.cat([torch.full((3, 8), -1, dtype=torch.int32),
+                    torch.zeros((66, 8), dtype=torch.int32)]).to(dev)
     got = cuda_hamming.hamming_distance_matrix_cuda(d1, d2)
     assert torch.equal(got, cuda_hamming.hamming_plain(d1, d2))
+    assert set(got.unique().tolist()) == {0, 256}
+
+
+@pytest.mark.parametrize("n1,n2", [(1200, 1200), (37, 300), (1, 1)])
+def test_hamming_probe_variants(dev, n1, n2):
+    """The probe's inner products (python -m plslam_tpu_torch.hamming_probe)
+    are the Hamming matrix too."""
+    from plslam_tpu_torch import hamming_probe
+
+    lib = hamming_probe.build()
+    g = torch.Generator().manual_seed(n1 + n2)
+    d1 = torch.randint(-2**31, 2**31, (n1, 8), generator=g).to(torch.int32).to(dev)
+    d2 = torch.randint(-2**31, 2**31, (n2, 8), generator=g).to(torch.int32).to(dev)
+    want = cuda_hamming.hamming_plain(d1, d2)
+    for name in ["shipped", *hamming_probe.VARIANTS]:
+        out = torch.full((n1, n2), -1, dtype=torch.int32, device=dev)
+        hamming_probe.launcher(lib, name)(d1, d2, out)
+        assert torch.equal(out, want), name
 
 
 def test_wrappers_raise_on_wrong_dtype(dev):
