@@ -6,7 +6,9 @@
 
 Phases, each reported on its own lines:
   1. device: fails without CUDA; prints nvidia-smi's name and power limit;
-  2. build: compiles the CUDA kernels from ``plslam_tpu_torch/csrc``;
+  2. build: compiles the CUDA kernels from ``plslam_tpu_torch/csrc``, while
+     a background process writes phase 9's fixture; the script waits for
+     that process before phase 3, so no timed phase shares the host with it;
   3. kernels: each kernel at the VO path's shapes (and the Hamming kernel
      at the mapper's and loop closer's) against its plain PyTorch version
      on the card (bit-exact); per shape its device time (a CUDA graph of
@@ -36,6 +38,17 @@ Phases, each reported on its own lines:
      the KF-0 region, no false loop, ATE and closure-keyframe error below
      the odometry's, real fusion, a multi-chunk endpoint GBA at finish, the
      Hamming kernel launched from the loop-closure thread;
+  9. disk path: a 40-frame 752x480 EuRoC-layout fixture (``io/mini_euroc``,
+     phase 4's scene, written during phase 2) through ``run_euroc.main``
+     with configs/config_euroc.yaml, the prefetching loader (decode on
+     host threads; the fixture's params are already rectified, so no
+     remap) and ``--gt``; every frame good but those the JAX package's CLI
+     also loses on the CPU (frame 34), >= 3 keyframes, a local BA
+     written back, one TUM row per keyframe, ATE under the floor, every
+     kernel launched; overlays when the card's machine has matplotlib,
+     else the frame diagnostics on the card against the CPU; the device
+     remap of configs/euroc_params.yaml's maps against the plain CPU remap;
+     loader decode ms, the stage split and the CLI's frames/s;
 then the summary lines, the kernel summary as one JSON line, and the
 result as the last line.  Any failure raises and exits non-zero, and so
 does an import of JAX or of the JAX package (``plslam_tpu``).
@@ -43,11 +56,14 @@ does an import of JAX or of the JAX package (``plslam_tpu``).
 
 import argparse
 import functools
+import importlib.util
 import json
 import logging
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -87,6 +103,20 @@ RING_KF = 156          # one revolution + a 16-keyframe revisit overlap
 RING_REVISIT = 134     # keyframes from here overlap the KF-0 sector
 TIMING_REPS = 25
 TIMING_WARMUP = 3
+
+# Phase 9: the disk path.  Keyframe ATE (m, the CLI's JSON tail) of the JAX
+# package's CLI (scripts/run_euroc.py --native-loader) on the same 40-frame
+# fixture on CPU, and the frames it loses, recorded frame by frame by
+#   python -m plslam_tpu_torch.io.mini_euroc DIR --frames 40 --euroc-size
+#   PYTHONPATH=. JAX_PLATFORMS=cpu python tests/test_torch_disk_e2e.py DIR configs/config_euroc.yaml
+# That run tracks every frame but frame 34 (its pose solve fails, err -1):
+# the port may lose no other frame.
+JAX_CPU_DISK_ATE = 0.0347
+JAX_CPU_DISK_LOST = (34,)
+DISK_ATE_FLOOR = max(2.0 * JAX_CPU_DISK_ATE, 0.01)
+DISK_FRAMES = 40
+DISK_OVERLAY_EVERY = 10
+ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Phase 3's timing.  Device time: TIMED_LAUNCHES back-to-back calls,
 # captured once in a CUDA graph and replayed between two CUDA events.
@@ -945,6 +975,180 @@ def phase_loop_closure(dev, smi):
     return by_thread, kf_per_s
 
 
+
+def start_disk_fixture(path: str) -> subprocess.Popen:
+    """Write phase 9's fixture in a background process (rendering 40 frames
+    at 752x480 takes tens of seconds of host time); ``wait_disk_fixture``
+    ends it before any timed phase."""
+    return subprocess.Popen(
+        [sys.executable, "-m", "plslam_tpu_torch.io.mini_euroc", path, "--frames",
+         str(DISK_FRAMES), "--euroc-size"], cwd=ROOT, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+
+def wait_disk_fixture(writer: subprocess.Popen) -> None:
+    t = time.perf_counter()
+    out, _ = writer.communicate(timeout=900)
+    if writer.returncode != 0:
+        raise AssertionError(f"fixture writer failed ({writer.returncode}): {out[-2000:]}")
+    say(f"build: phase 9's fixture ready ({out.strip()}; waited {time.perf_counter() - t:.3f} s "
+        "after the build, before phase 3)")
+
+
+def _to_cpu(tree):
+    if isinstance(tree, torch.Tensor):
+        return tree.cpu()
+    return type(tree)(*(_to_cpu(x) for x in tree))
+
+
+def check_diagnostics_on_card(dev, fixture, cfg, frames, smi) -> None:
+    """Without matplotlib: frame diagnostics of fixture ``frames`` on the
+    card against the same call on the CPU, and their residual records."""
+    from plslam_tpu_torch import config as C
+    from plslam_tpu_torch import viz_frame
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.io import euroc
+    from plslam_tpu_torch.vo import VisualOdometry
+
+    calib = euroc.load_euroc_calib(os.path.join(fixture, "params.yaml"))
+    cam = StereoCamera.create(calib.fx, calib.fy, calib.cx, calib.cy, calib.baseline,
+                              width=calib.width, height=calib.height)
+    ds = euroc.EurocDataset(fixture, calib)
+    tcfg = C.tracker(cfg)
+    vo = VisualOdometry(cam, C.frontend(cfg, 752), tcfg, device=dev)
+    jsonl = os.path.join(fixture, "residuals.jsonl")
+    for frame in frames:
+        vo.initialize(*(torch.from_numpy(x).to(dev) for x in ds[frame - 1][:2]))
+        prev = vo.current_features
+        res = vo.process(*(torch.from_numpy(x).to(dev) for x in ds[frame][:2]))
+        curr = vo.current_features
+        got = viz_frame.compute_frame_diagnostics(prev, curr, res.DT, cam, tcfg)
+        want = viz_frame.compute_frame_diagnostics(_to_cpu(prev), _to_cpu(curr),
+                                                   res.DT.cpu(), cam, tcfg)
+        for k, w in want.items():
+            g = got[k]
+            if w.dtype == bool:
+                if not np.array_equal(g, w):
+                    raise AssertionError(f"diagnostics {k} of frame {frame}: card != CPU")
+            elif not np.allclose(g, w, rtol=0, atol=1e-4):
+                raise AssertionError(f"diagnostics {k} of frame {frame}: max |card - CPU| "
+                                     f"{np.abs(g - w).max()}")
+        viz_frame.dump_residuals_jsonl(got, jsonl, frame)
+        say(f"disk: frame {frame} diagnostics on the card = CPU ({int(got['p_valid'].sum())} "
+            f"points, {int(got['l_valid'].sum())} lines tracked) on {smi}")
+    with open(jsonl) as f:
+        written = [json.loads(ln)["frame"] for ln in f]
+    if written != list(frames):
+        raise AssertionError(f"residual records of frames {written}")
+    say("disk: overlay PNGs not rendered: the card's machine has no matplotlib; residual "
+        f"records written by dump_residuals_jsonl for frames {written}")
+
+
+def check_remap_on_card(dev, fixture, smi) -> tuple[float, float]:
+    """configs/euroc_params.yaml's rectification of one fixture pair on the
+    card against the plain CPU remap; the maps' host build time and the
+    remap's device time per pair."""
+    from plslam_tpu_torch.io import euroc
+    from plslam_tpu_torch.ops.image import remap
+
+    t = time.perf_counter()
+    calib = euroc.load_euroc_calib(os.path.join(CONFIGS, "euroc_params.yaml"))
+    maps_ms = 1e3 * (time.perf_counter() - t)
+    if calib.identity_maps or (calib.width, calib.height) != (752, 480):
+        raise AssertionError("configs/euroc_params.yaml did not give 752x480 maps")
+    ds = euroc.EurocDataset(fixture, calib, rectify_on_host=False)
+    pair = np.stack([euroc.read_image(ds.files_l[0]), euroc.read_image(ds.files_r[0])])
+    mx = torch.from_numpy(np.stack([calib.map_l[0], calib.map_r[0]]))
+    my = torch.from_numpy(np.stack([calib.map_l[1], calib.map_r[1]]))
+    want = remap(torch.from_numpy(pair).float(), mx, my)
+    raw, mxd, myd = torch.from_numpy(pair).to(dev), mx.to(dev), my.to(dev)
+    got = remap(raw.float(), mxd, myd)
+    err = (got.cpu() - want).abs().max().item()
+    if not err <= 1e-3:
+        raise AssertionError(f"device remap vs CPU: max |diff| {err}")
+    # device time from a CUDA graph of 100 calls (a stream of eager calls
+    # measures the host's issue rate: ~25 small kernels per call); host time
+    # of one call between events; bound: the uint8 pair and the two maps
+    # read once, the float32 pair written once
+    fn = lambda: remap(raw.float(), mxd, myd)  # noqa: E731
+    remap_us, host_us = 1e3 * graph_ms(fn), 1e3 * median_ms(fn)
+    bound_us = 1e3 * bound(raw.numel() + 4 * (mxd.numel() + myd.numel()) + 4 * mxd.numel())[0]
+    say(f"disk: rectification maps of configs/euroc_params.yaml built on the host in "
+        f"{maps_ms:.3f} ms; device remap = CPU remap (max |diff| {err:.3g} grey levels); "
+        f"(2, 480, 752) pair, uint8 -> float32 + remap: device {remap_us:.3f} us (bound "
+        f"{bound_us:.3f} us by bytes), host {host_us:.3f} us per call on {smi}")
+    return maps_ms, remap_us
+
+
+def phase_disk(dev, smi, fixture):
+    """``run_euroc.main`` over the on-disk fixture on the card."""
+    from plslam_tpu_torch import run_euroc
+    from plslam_tpu_torch.config import PLSLAMConfig
+
+    config = os.path.join(CONFIGS, "config_euroc.yaml")
+    overlays = importlib.util.find_spec("matplotlib") is not None
+    traj = os.path.join(fixture, "trajectory_tum.txt")
+    ov_dir = os.path.join(fixture, "overlays")
+    argv = [fixture, "--params", os.path.join(fixture, "params.yaml"), "--config", config,
+            "--gt", os.path.join(fixture, "groundtruth.csv"), "--native-loader", "--out", traj,
+            "--device", str(dev)]
+    if overlays:
+        argv += ["--overlay-every", str(DISK_OVERLAY_EVERY), "--overlay-dir", ov_dir]
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    res = run_euroc.main(argv)
+    torch.cuda.synchronize()
+    by_thread = {k: fn.launches_by_thread() for k, fn in wrappers.items()}
+    assert_no_jax()
+    slam = res["slam"]
+    good = [lg.good for lg in slam.logs]
+    lost = [lg.frame for lg in slam.logs if not lg.good]
+    n_kf = len(slam.mapper.map.keyframes)
+    with open(traj) as f:
+        rows = [ln for ln in f.read().splitlines() if ln.strip()]
+    fps = res["frames"] / res["seconds"]
+    say(f"disk: {fps:.3f} CLI frames/s (host clock, {res['frames']} frames); "
+        f"{sum(good)}/{len(good)} frames good (lost {lost}; the JAX CPU run lost "
+        f"{list(JAX_CPU_DISK_LOST)}); {n_kf} keyframes; "
+        f"{slam.mapper.n_local_ba_applied} local BAs written back; keyframe ATE "
+        f"{res['ate_rmse_m']:.6f} m (floor {DISK_ATE_FLOOR:.6f}, JAX CPU {JAX_CPU_DISK_ATE}) "
+        f"on {smi}")
+    stages = {k: v["mean_ms"] for k, v in res["stages"].items()}
+    say(f"disk: loader decode {res['decode_ms']:.3f} ms per frame (worker threads, both "
+        f"images); stage means (host clock, ms per frame): {stages} on {smi}")
+    say(f"disk launches by thread: {by_thread}")
+    if slam._map_errors:
+        raise AssertionError(f"a worker thread raised: {slam._map_errors!r}")
+    if len(good) != DISK_FRAMES - 1 or not set(lost) <= set(JAX_CPU_DISK_LOST):
+        raise AssertionError(f"frames lost tracking: {lost} (the JAX run lost "
+                             f"{list(JAX_CPU_DISK_LOST)})")
+    if n_kf < 3:
+        raise AssertionError(f"only {n_kf} keyframes")
+    if slam.mapper.n_local_ba_applied < 1:
+        raise AssertionError("no local BA was written back")
+    if len(rows) != n_kf:
+        raise AssertionError(f"{len(rows)} TUM rows for {n_kf} keyframes")
+    if not res["ate_rmse_m"] <= DISK_ATE_FLOOR:
+        raise AssertionError(f"keyframe ATE {res['ate_rmse_m']} above floor {DISK_ATE_FLOOR}")
+    for k in KERNEL_WRAPPERS:
+        if sum(by_thread[k].values()) <= 0:
+            raise AssertionError(f"kernel {k} never launched on the disk path")
+    marks = [DISK_OVERLAY_EVERY * k for k in range(1, (DISK_FRAMES - 1) // DISK_OVERLAY_EVERY + 1)]
+    if overlays:
+        pngs = sorted(n for n in os.listdir(ov_dir) if n.endswith(".png"))
+        with open(os.path.join(ov_dir, "residuals.jsonl")) as f:
+            frames = [json.loads(ln)["frame"] for ln in f]
+        if pngs != [f"overlay_{k:06d}.png" for k in marks] or frames != marks:
+            raise AssertionError(f"overlays {pngs}, residual records {frames}")
+        say(f"disk: overlays and residual records of frames {frames}")
+    else:
+        check_diagnostics_on_card(dev, fixture, PLSLAMConfig.from_yaml(config), marks[:2], smi)
+    maps_ms, remap_us = check_remap_on_card(dev, fixture, smi)
+    assert_no_jax()
+    return by_thread, fps, res["ate_rmse_m"], remap_us
+
+
 def assert_no_jax() -> None:
     """The port imports nothing of JAX or of the JAX package."""
     bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "plslam_tpu"))
@@ -968,6 +1172,21 @@ def main(argv=()) -> int:
     say(f"device: {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
+    fixture = writer = None
+    if not args.kernels:
+        fixture = tempfile.mkdtemp(prefix="chip_smoke_disk_")
+        writer = start_disk_fixture(fixture)
+    try:
+        return run_phases(args, dev, smi, kind, fixture, writer)
+    finally:
+        if writer is not None and writer.poll() is None:
+            writer.kill()
+            writer.wait()
+        if fixture is not None:
+            shutil.rmtree(fixture, ignore_errors=True)
+
+
+def run_phases(args, dev, smi, kind, fixture, writer) -> int:
     from plslam_tpu_torch.io import SyntheticScene, circular_trajectory
     from plslam_tpu_torch.ops import cuda_lib
     from plslam_tpu_torch.ops.image import build_pyramid
@@ -978,6 +1197,8 @@ def main(argv=()) -> int:
     for line in build.log.splitlines():
         if "Used" in line or "spill" in line:
             say(f"  ptxas: {line.strip()}")
+    if writer is not None:
+        wait_disk_fixture(writer)
 
     # bench.py's configuration, frames staged on the device
     scene = SyntheticScene(n_points=600, n_lines=60, seed=0, width=752, height=480,
@@ -998,9 +1219,11 @@ def main(argv=()) -> int:
     lm_ips = phase_local_ba(dev, smi)
     ep_launches, ep_fps, ep_ate = phase_endpoint_slam(dev, scene, smi)
     loop_launches, loop_kf_s = phase_loop_closure(dev, smi)
+    disk_launches, disk_fps, disk_ate, remap_us = phase_disk(dev, smi, fixture)
     for k in report:
         by_path = {"vo": launches[k["name"]], "slam": slam_launches[k["name"]],
-                   "slam_endpoint": ep_launches[k["name"]], "loop": loop_launches[k["name"]]}
+                   "slam_endpoint": ep_launches[k["name"]], "loop": loop_launches[k["name"]],
+                   "disk": disk_launches[k["name"]]}
         k["launches"] = by_path["vo"] + sum(sum(v.values()) for p, v in by_path.items()
                                             if p != "vo")
         k["launches_by_path"] = by_path
@@ -1010,6 +1233,8 @@ def main(argv=()) -> int:
         f"{lm_ips:.3f} LM iterations/s on {smi}")
     say(f"endpoint slam path: {ep_fps:.3f} frames/s, keyframe ATE {ep_ate:.6f} m; loop "
         f"replay {loop_kf_s:.3f} keyframes/s on {smi}")
+    say(f"disk path: {disk_fps:.3f} CLI frames/s, keyframe ATE {disk_ate:.6f} m; device remap "
+        f"{remap_us:.3f} us per pair on {smi}")
     say(json.dumps({"kernels": report}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

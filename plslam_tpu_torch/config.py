@@ -4,7 +4,9 @@ builders from it to the port's config types.
 ``PLSLAMConfig`` is the port's own copy of the JAX package's dataclass
 (``plslam_tpu/config.py``; reference ``src2/config.cpp`` and
 ``src/slamConfig.cpp``): the same fields, defaults and ``from_yaml``
-(``tests/test_torch_io.py`` holds them equal).  The builders are module
+(``tests/test_torch_io.py`` holds them equal), except that ``from_yaml``
+reads a float field written without a dot (``1e-7``) as the float the
+reference's yaml-cpp gives, where PyYAML's YAML 1.1 leaves a string.  The builders are module
 functions that read its fields and return the port's types; they take any
 object with those fields.
 """
@@ -172,10 +174,11 @@ class PLSLAMConfig:
             # whitespace — config/config/config.yaml ships with one — but
             # strict YAML forbids them; normalize for interchange
             data = yaml.safe_load(f.read().replace("\t", " ")) or {}
+        floats = {f.name for f in dataclasses.fields(cls) if isinstance(f.default, float)}
         names = {f.name for f in dataclasses.fields(cls)}
         for k, v in data.items():
             if k in names:
-                setattr(cfg, k, v)
+                setattr(cfg, k, float(v) if k in floats and isinstance(v, str) else v)
         return cfg
 
 

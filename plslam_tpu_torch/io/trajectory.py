@@ -83,3 +83,25 @@ def ate_rmse(est_positions: np.ndarray, gt_positions: np.ndarray,
         est = (s * (R @ est.T)).T + t
     err = est - gt
     return float(np.sqrt((err ** 2).sum(axis=1).mean()))
+
+
+def associate_timestamps(t_est, t_gt, max_dt: float = 0.02):
+    """Greedy nearest-timestamp association (the associations.txt protocol).
+
+    Returns (idx_est, idx_gt) index arrays.
+    """
+    t_est = np.asarray(t_est, float)
+    t_gt = np.asarray(t_gt, float)
+    ie, ig = [], []
+    j = 0
+    for i, t in enumerate(t_est):
+        j = int(np.searchsorted(t_gt, t))
+        best = None
+        for cand in (j - 1, j):
+            if 0 <= cand < len(t_gt) and abs(t_gt[cand] - t) <= max_dt:
+                if best is None or abs(t_gt[cand] - t) < abs(t_gt[best] - t):
+                    best = cand
+        if best is not None:
+            ie.append(i)
+            ig.append(best)
+    return np.asarray(ie, int), np.asarray(ig, int)

@@ -1,4 +1,5 @@
-"""Image filters on (B, H, W) stacks: Gaussian blur, Sobel, resize, pyramid.
+"""Image filters on (B, H, W) stacks: Gaussian blur, Sobel, resize,
+pyramid, and the bilinear remap of stereo rectification.
 
 Blur and Sobel are separable ``conv2d`` with replicate padding; the JAX
 package writes them as banded matmuls only to suit the TPU
@@ -93,3 +94,32 @@ def build_pyramid(imgs: torch.Tensor, n_levels: int, scale_factor: float):
         s = scale_factor ** i
         levels.append(resize_bilinear(imgs, (int(round(H / s)), int(round(W / s)))))
     return levels
+
+
+def bilinear_sample(imgs: torch.Tensor, xy: torch.Tensor) -> torch.Tensor:
+    """Sample each (H, W) image of a (B, H, W) stack at its (B, ..., 2)
+    float (x, y) pixel coordinates, borders clamped
+    (``plslam_tpu.ops.image.bilinear_sample``, one image per batch item)."""
+    B, H, W = imgs.shape
+    x = torch.clamp(xy[..., 0], 0.0, W - 1.000001)
+    y = torch.clamp(xy[..., 1], 0.0, H - 1.000001)
+    x0, y0 = torch.floor(x), torch.floor(y)
+    fx, fy = x - x0, y - y0
+    x0, y0 = x0.long(), y0.long()
+    x1 = torch.clamp(x0 + 1, max=W - 1)
+    y1 = torch.clamp(y0 + 1, max=H - 1)
+    flat = imgs.reshape(B, H * W)
+
+    def at(yi, xi):
+        return torch.gather(flat, 1, (yi * W + xi).reshape(B, -1)).reshape(yi.shape)
+
+    return ((1 - fy) * ((1 - fx) * at(y0, x0) + fx * at(y0, x1))
+            + fy * ((1 - fx) * at(y1, x0) + fx * at(y1, x1)))
+
+
+def remap(imgs: torch.Tensor, map_x: torch.Tensor, map_y: torch.Tensor) -> torch.Tensor:
+    """cv2.remap with float maps and clamped borders on a stack:
+    out[b, i, j] = bilinear(imgs[b], map_x[b, i, j], map_y[b, i, j])
+    (``plslam_tpu.ops.image.remap``; rectifyImagesLR,
+    pinholeStereoCamera.cpp:200)."""
+    return bilinear_sample(imgs, torch.stack([map_x, map_y], dim=-1))

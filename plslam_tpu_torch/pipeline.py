@@ -7,15 +7,20 @@ keyframe MapHandler::addKeyFrame, at the end globalBundleAdjustment
 With loop closure (endpoint-line mode only, as in the reference) a third
 thread, ``plslam-loopcloser``, encodes every keyframe and closes loops off
 the mapping thread.  Checkpoints save and restore the map and the loop
-closer's state in the JAX package's layout.
+closer's state in the JAX package's layout.  ``viz_every_kf`` rewrites a
+live scene HTML from the mapping thread under the map lock, and
+``overlay_every`` renders a diagnosis overlay and a residual record of every
+N-th frame (``viz_scene``, ``viz_frame``); a failure of either is logged and
+never stops mapping or tracking.
 
-Not ported yet (ROADMAP queue 1), each raising ``NotImplementedError``:
-the distributed GBA (``mesh=``), overlays and the live scene export.
+Not ported yet (ROADMAP queue 1): the distributed GBA (``mesh=``) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import json
+import logging
 import os
 import queue
 import threading
@@ -33,6 +38,8 @@ from .core.camera import StereoCamera
 from .io.checkpoint import load_map, save_map
 from .io.trajectory import save_tum
 from .vo import VisualOdometry
+
+log = logging.getLogger(__name__)
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -68,10 +75,6 @@ class PLSLAM:
                 "loop closure cannot be enabled in Pluecker line mode "
                 "(reference constraint, README.md:12); set "
                 "use_line_plucker=False for the loop-closure baseline")
-        if cfg.overlay_every > 0:
-            raise _not_ported("overlay_every", "overlays")
-        if cfg.viz_every_kf > 0:
-            raise _not_ported("viz_every_kf", "viz")
         self.cam = cam
         self.device = torch.device(device)
         self.vo = VisualOdometry(cam, C.frontend(cfg, max(int(cam.width), int(cam.height))),
@@ -158,8 +161,23 @@ class PLSLAM:
         # the local BA's copy and write-back overlap the next keyframe's
         # association (mapHandler.cpp:1251-1300)
         self.mapper.add_keyframe(pose, feats, defer_ba=True)
+        every = self.config.viz_every_kf
+        if every > 0 and len(self.mapper.map.keyframes) % every == 0:
+            self._export_scene()
         if self.loop_closer is not None:
             self._to_loop_closer(len(self.mapper.map.keyframes) - 1)
+
+    def _export_scene(self):
+        """Rewrite the live scene HTML (slamScene updateSceneSafe analog).
+        The map lock keeps it from reading a half-applied loop-closure
+        correction; a failure never kills the mapping worker."""
+        from .viz_scene import export_scene_html
+
+        try:
+            with self.mapper._map_lock:
+                export_scene_html(self.mapper, self.config.viz_path)
+        except Exception:
+            log.exception("live scene export failed")
 
     def _submit(self, pose, feats):
         if self._kf_queue is not None:
@@ -220,9 +238,13 @@ class PLSLAM:
             self._initialized = True
             self._frame_idx += 1
             return None
+        every = self.config.overlay_every
+        prev_feats = self.vo.current_features if every > 0 else None
         res = self.vo.process(il, ir)
         sc = self._pack_frame_scalars(res).cpu().numpy()
         is_kf = bool(sc[0] > 0.5)
+        if every > 0 and self._frame_idx % every == 0:
+            self._render_overlay(il, prev_feats, res)
         if is_kf:
             pose = self._T_anchor @ sc[5:21].reshape(4, 4).astype(np.float64)
             feats = self.vo.current_features
@@ -237,6 +259,23 @@ class PLSLAM:
                                   entropy_ratio=float(sc[4])))
         self._frame_idx += 1
         return res
+
+    def _render_overlay(self, il, prev_feats, res):
+        """Diagnosis overlay and residual record of this frame (viz_frame);
+        a failure is logged and never stops tracking."""
+        from . import viz_frame
+
+        try:
+            diag = viz_frame.compute_frame_diagnostics(
+                prev_feats, self.vo.current_features, res.DT, self.cam, C.tracker(self.config))
+            d = self.config.overlay_dir
+            viz_frame.render_frame_overlay(
+                il.cpu().numpy(), diag, os.path.join(d, f"overlay_{self._frame_idx:06d}.png"),
+                frame_id=self._frame_idx)
+            viz_frame.dump_residuals_jsonl(diag, os.path.join(d, "residuals.jsonl"),
+                                           self._frame_idx)
+        except Exception:
+            log.exception("overlay render failed")
 
     # -- end of run --------------------------------------------------------
 

@@ -156,3 +156,37 @@ def test_loop_closer_modules_on_the_card(dev):
     got = matching.match_descriptors(d.to(dev), d.to(dev), mask.to(dev), 0.9).idx.cpu()
     assert cuda_hamming.hamming_distance_matrix_cuda.launches == n + 1
     assert torch.equal(got, matching.match_descriptors(d, d, mask, 0.9).idx)
+
+
+def test_remap_on_the_card(dev, tmp_path):
+    """The disk path's rectification (ops/image.remap, plain torch) on the
+    card against the same call on the CPU: configs/euroc_params.yaml's maps
+    on a 752x480 pair, within 1e-3 grey levels; and the loader's uint8
+    upload and remap end to end."""
+    import os
+
+    import cv2
+    import numpy as np
+
+    from plslam_tpu_torch.io import euroc
+    from plslam_tpu_torch.io.loader import StereoLoader
+    from plslam_tpu_torch.ops.image import remap
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+    calib = euroc.load_euroc_calib(os.path.join(root, "configs", "euroc_params.yaml"))
+    g = torch.Generator().manual_seed(0)
+    imgs = torch.rand((2, 480, 752), generator=g).mul_(255).round_()
+    mx = torch.from_numpy(np.stack([calib.map_l[0], calib.map_r[0]]))
+    my = torch.from_numpy(np.stack([calib.map_l[1], calib.map_r[1]]))
+    want = remap(imgs, mx, my)
+    got = remap(imgs.to(dev), mx.to(dev), my.to(dev))
+    assert got.device.type == "cuda"
+    assert (got.cpu() - want).abs().max().item() <= 1e-3
+    files = [str(tmp_path / f"{s}.png") for s in ("l", "r")]
+    for f, img in zip(files, imgs):
+        assert cv2.imwrite(f, img.to(torch.uint8).numpy())
+    with StereoLoader(files[:1], files[1:], 752, 480, maps=(calib.map_l, calib.map_r),
+                      device=dev) as nl:
+        il, ir = nl.get(0)
+    assert il.device == dev and il.dtype == torch.float32
+    assert (torch.stack([il, ir]).cpu() - want).abs().max().item() <= 1e-3

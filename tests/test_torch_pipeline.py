@@ -2,7 +2,8 @@
 GBA) on test_pipeline_threads' synthetic scene (376x240, 8 frames, a
 keyframe nearly every frame): the threaded and the inline mapper build the
 same map, the keyframe ATE stays under max(2x the JAX package's, 0.01 m),
-errors on the worker surface at finish(), and what is not ported raises.
+errors on the worker surface at finish(), overlays and the live scene
+export are written, and the distributed GBA (not ported) raises.
 With loop closure (endpoint lines): the loop-closure thread never blocks
 the keyframe queue, and a feature replay closes a loop through both
 threads."""
@@ -136,23 +137,76 @@ def test_plucker_with_loop_closure_raises():
         PLSLAM(cam, PLSLAMConfig(use_line_plucker=True, use_loop_closure=True), device="cpu")
 
 
-@pytest.mark.parametrize("cfg_kw", [dict(overlay_every=1), dict(viz_every_kf=1)])
-def test_not_ported_raises(cfg_kw):
-    cam = StereoCamera.create(200.0, 200.0, 160.0, 120.0, 0.11)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PLSLAM(cam, PLSLAMConfig(multithread_slam=False, **cfg_kw), device="cpu")
-
-
 @pytest.mark.parametrize("cfg_kw", [
     dict(use_line_plucker=False), dict(has_refinement=True),
-    dict(use_line_plucker=False, use_loop_closure=True), dict(checkpoint_every_kf=1)])
+    dict(use_line_plucker=False, use_loop_closure=True), dict(checkpoint_every_kf=1),
+    dict(overlay_every=1), dict(viz_every_kf=1)])
 def test_formerly_refused_configs_build(cfg_kw):
-    """Endpoint lines, the keyframe refinement, loop closure and
-    auto-checkpoints are ported: the pipeline builds with each."""
+    """Endpoint lines, the keyframe refinement, loop closure,
+    auto-checkpoints, overlays and the live scene export are ported: the
+    pipeline builds with each."""
     cam = StereoCamera.create(200.0, 200.0, 160.0, 120.0, 0.11)
     slam = PLSLAM(cam, PLSLAMConfig(multithread_slam=False, **cfg_kw), device="cpu")
     assert (slam.loop_closer is not None) == bool(cfg_kw.get("use_loop_closure"))
     assert slam.mapper.cfg.plucker_lines == cfg_kw.get("use_line_plucker", True)
+
+
+def test_overlay_and_live_scene(tmp_path):
+    """overlay_every renders every other frame's overlay and residual record
+    (tests/test_viz_frame.py's scene), viz_every_kf rewrites the scene HTML
+    from the mapping worker; tracking and mapping are unaffected."""
+    pytest.importorskip("matplotlib")
+    scene = SyntheticScene(n_points=260, n_lines=32, seed=2)
+    html = str(tmp_path / "live.html")
+    cfg = PLSLAMConfig(orb_nfeatures=512, lsd_nfeatures=64, orb_fast_th=15,
+                       min_entropy_ratio=0.99, overlay_every=2,
+                       overlay_dir=str(tmp_path / "ov"), viz_every_kf=1, viz_path=html)
+    slam = PLSLAM(_cam(scene), cfg, MapConfig(**MAP_CFG), device="cpu")
+    for i, T in enumerate(circular_trajectory(4, step_t=0.05)):
+        slam.process(*scene.render_stereo(T, noise=1.0), timestamp=0.05 * i)
+    slam.finish(run_gba=False)
+    assert slam._map_errors == [] and all(lg.good for lg in slam.logs)
+    assert [p.name for p in (tmp_path / "ov").iterdir() if p.suffix == ".png"] == \
+        ["overlay_000002.png"]
+    recs = [json.loads(ln) for ln in (tmp_path / "ov" / "residuals.jsonl").read_text().splitlines()]
+    assert [r["frame"] for r in recs] == [2]
+    inl = [v for r in recs for (_, v, ok) in r["pt"] if ok]
+    assert inl and all(np.isfinite(v) for v in inl)
+    assert len(slam.mapper.map.keyframes) >= 2
+    assert "const DATA" in open(html).read()
+
+
+def test_overlay_failure_never_stops_tracking(tmp_path, caplog):
+    scene = SyntheticScene(n_points=80, n_lines=12, seed=0, width=188, height=120,
+                           fx=100.0, fy=100.0, cx=94.0, cy=60.0)
+    cfg = PLSLAMConfig(orb_nfeatures=256, lsd_nfeatures=64, multithread_slam=False,
+                       overlay_every=1, overlay_dir=str(tmp_path / "ov"))
+    slam = PLSLAM(_cam(scene), cfg, MapConfig(**MAP_CFG), device="cpu")
+
+    def boom(*a, **k):
+        raise RuntimeError("render failed")
+
+    import plslam_tpu_torch.viz_frame as vf
+    old = vf.render_frame_overlay
+    vf.render_frame_overlay = boom
+    try:
+        for i, T in enumerate(circular_trajectory(3, step_t=0.05)):
+            slam.process(*scene.render_stereo(T, noise=1.0), timestamp=0.05 * i)
+    finally:
+        vf.render_frame_overlay = old
+    slam.finish(run_gba=False)
+    assert len(slam.logs) == 2
+    assert caplog.text.count("overlay render failed") == 2
+
+
+def test_scene_export_failure_never_stops_mapping(tmp_path, caplog):
+    slam, poses, feats = _feature_slam(multithread_slam=False, viz_every_kf=1,
+                                       viz_path=str(tmp_path / "missing" / "scene.html"))
+    for i, (T, f) in enumerate(zip(poses, feats)):
+        slam.insert_keyframe_features(T, f, timestamp=0.1 * i)
+    slam.finish(run_gba=False)
+    assert len(slam.mapper.map.keyframes) == len(poses)
+    assert caplog.text.count("live scene export failed") == len(poses) - 1
 
 
 def test_distributed_gba_raises():
