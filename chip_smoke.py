@@ -49,7 +49,19 @@ Phases, each reported on its own lines:
      else the frame diagnostics on the card against the CPU; the device
      remap of configs/euroc_params.yaml's maps against the plain CPU remap;
      loader decode ms, the stage split and the CLI's frames/s;
-then the summary lines, the kernel summary as one JSON line, and the
+ 10. batched VO and RGB-D: ``BatchedVisualOdometry`` at
+     scripts/bench_batch_vo.py's configuration (16 streams rendered in
+     worker processes during phase 2) for B in 1, 2, 4, 8, 16: aggregate
+     and per-stream frames/s, every frame of every stream good, 4 FAST / 2
+     patch / 4 Hamming launches per frame at every B, no host sync, no
+     vmap fallback; at B = 4 each stream's ATE under max(2x the JAX
+     package's CPU value, 0.01 m); at B = 2 each stream against
+     single-stream ``VisualOdometry``; then tests/test_rgbd.py's two-frame
+     RGB-D track (error under 0.02 m, the FAST and patch kernels launched).
+Phase 4 also runs the VO twice over its frames and phase 6 ``lm_rounds``
+six times on one problem: both must repeat bit for bit.  Phase 3 also
+times the batched Hamming launch at (B, 1200, 8)^2 and (B, 256, 8)^2.
+Then come the summary lines, the kernel summary as one JSON line, and the
 result as the last line.  Any failure raises and exits non-zero, and so
 does an import of JAX or of the JAX package (``plslam_tpu``).
 """
@@ -118,6 +130,30 @@ DISK_FRAMES = 40
 DISK_OVERLAY_EVERY = 10
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
+# Phase 10: scripts/bench_batch_vo.py's configuration.  Stream s renders
+# SyntheticScene(600, 60, seed=s) at 752x480 along circular_trajectory(16,
+# step_t=0.05) with noise 1.0; 3 warm-up frames, then 12 timed.
+BATCH_SIZES = (1, 2, 4, 8, 16)
+BATCH_WARMUP = 3
+BATCH_FRAMES = 12
+BATCH_SCENE = dict(n_points=600, n_lines=60, width=752, height=480, fx=435.2, fy=435.2,
+                   cx=367.4, cy=252.2)
+BATCH_WIDTHS = dict(n_points=1200, n_lines=256)
+# Per-stream ATE (m, unaligned, all 16 poses) of the JAX package's
+# BatchedVisualOdometry(4) on the same frames, run on CPU
+# (scripts/jax_batch_vo_reference.py); at B = BATCH_ATE_B each stream must
+# stay under max(2x its value, 0.01 m).
+JAX_CPU_BATCH_ATE = (0.022467623002017618, 0.03780642143164076, 0.045951607969494164,
+                     0.04782139652707396)
+BATCH_ATE_B = 4
+BATCH_MATCH_B = 2   # streams held against single-stream VisualOdometry
+# launches per batched frame, whatever B is
+BATCH_LAUNCHES = {"fast_score_nms_batch": 4, "gather_patches_batch": 2,
+                  "hamming_distance_matrix_cuda": 4}
+RENDER_WORKERS = 8
+# tests/test_rgbd.py's two-frame RGB-D scenario
+RGBD_XI = (0.02, -0.01, 0.1, 0.005, -0.008, 0.01)
+
 # Phase 3's timing.  Device time: TIMED_LAUNCHES back-to-back calls,
 # captured once in a CUDA graph and replayed between two CUDA events.
 TIMED_LAUNCHES = 100
@@ -143,6 +179,8 @@ FAST_CANDIDATE_OPS = (12, 2 * 57 + 1 + 2)
 # Hamming matrices of one VO frame: stereo and f2f, points and lines
 HAMMING_VO = {(1200, 1200): 2, (256, 256): 2}
 HAMMING_SHAPES = ((1200, 1200), (256, 256), (2048, 1200), (160, 160), (24, 24))
+# and batched, (B, N, 8)^2 at phase 10's point and line widths
+HAMMING_BATCHES = (4, 16)
 
 
 def say(msg: str) -> None:
@@ -249,14 +287,16 @@ def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
     return err
 
 
-def time_shape(shape, kernel, plain, library, nbytes, *ops) -> dict:
+def time_shape(shape, kernel, plain, library, nbytes, *ops, launches=TIMED_LAUNCHES) -> dict:
     """One kernel at one shape: device, host, plain and library times and
     the bound, all in ms.  ``library`` maps a name to one PyTorch call that
-    computes the same function (never called by the port)."""
+    computes the same function (never called by the port).  ``launches``
+    per CUDA graph: fewer where 100 outputs would not fit the card."""
     t_bound, by = bound(nbytes, *ops)
-    row = dict(shape=list(shape), device_ms=graph_ms(kernel), host_ms=median_ms(kernel),
-               plain_ms=stream_ms(plain), bound_ms=t_bound, bound_by=by, bytes=int(nbytes))
-    lib = {k: graph_ms(fn) for k, fn in library.items()}
+    row = dict(shape=list(shape), device_ms=graph_ms(kernel, launches),
+               host_ms=median_ms(kernel), plain_ms=stream_ms(plain), bound_ms=t_bound,
+               bound_by=by, bytes=int(nbytes))
+    lib = {k: graph_ms(fn, launches) for k, fn in library.items()}
     row["library"] = lib
     row["library_ms"] = min(lib.values()) if lib else None
     row["share"] = t_bound / row["device_ms"]
@@ -283,16 +323,20 @@ def summarize(name: str, rows: list[dict], per_frame: list[int], errs: list[floa
 def hamming_library(d1: torch.Tensor, d2: torch.Tensor) -> dict:
     """The Hamming matrix as one PyTorch call, on operands unpacked
     beforehand: fp16 +-1 addmm (128 - dot / 2, exact: integer sums <= 256)
-    and cdist with p=0 on {0, 1} floats.  Each is checked once."""
+    and cdist with p=0 on {0, 1} floats; for a (B, N, 8) batch the batched
+    addmm (baddbmm) alone.  Each is checked once."""
     from plslam_tpu_torch.ops.cuda_hamming import hamming_plain
     from plslam_tpu_torch.ops.descriptors import unpack_bits
 
     b1, b2 = unpack_bits(d1), unpack_bits(d2)
-    s1, s2 = (2 * b1 - 1).half(), (2 * b2 - 1).half().t()
+    s1, s2 = (2 * b1 - 1).half(), (2 * b2 - 1).half().transpose(-1, -2)
     c = torch.full((1,), 128.0, dtype=torch.float16, device=d1.device)
     f1, f2 = b1.float(), b2.float()
-    lib = {"addmm_fp16": lambda: torch.addmm(c, s1, s2, alpha=-0.5),
-           "cdist_p0": lambda: torch.cdist(f1, f2, p=0)}
+    if d1.dim() == 3:
+        lib = {"baddbmm_fp16": lambda: torch.baddbmm(c, s1, s2, alpha=-0.5)}
+    else:
+        lib = {"addmm_fp16": lambda: torch.addmm(c, s1, s2, alpha=-0.5),
+               "cdist_p0": lambda: torch.cdist(f1, f2, p=0)}
     want = hamming_plain(d1, d2)
     for k, fn in lib.items():
         if not torch.equal(fn().round().int(), want):
@@ -301,9 +345,10 @@ def hamming_library(d1: torch.Tensor, d2: torch.Tensor) -> dict:
 
 
 def main_path_corners(levels, pair):
-    """The patch gathers' inputs as the VO frame makes them from this pair:
-    ORB's (2, 1200) corners around the frame's FAST keypoints on the blurred
-    pair, LBD's (4, 1536) along its segments on gx and gy of both images."""
+    """The patch gathers' inputs as the VO frame makes them from this pair
+    (or the flat (2B, H, W) stack of a batched frame): ORB's (2, 1200)
+    corners around the frame's FAST keypoints on the blurred pair, LBD's
+    (4, 1536) along its segments on gx and gy of both images."""
     from plslam_tpu_torch.frontend.frame import FrontendConfig
     from plslam_tpu_torch.ops import fast, lbd, lines, orb
     from plslam_tpu_torch.ops.image import blur, sobel
@@ -315,25 +360,35 @@ def main_path_corners(levels, pair):
     y0, x0 = corners(kp.xy, orb.CENTER)
     seg = lines.detect_segments(pair, lines.LineDetectorConfig(max_out=cfg.n_lines,
                                                                n_orient=cfg.line_orient_bins))
-    ly, lx = corners(lbd._patch_centers(seg.sp, seg.ep).reshape(2, -1, 2), lbd.CENTER)
+    ly, lx = corners(lbd._patch_centers(seg.sp, seg.ep).reshape(pair.shape[0], -1, 2),
+                     lbd.CENTER)
     gx, gy = sobel(blur(pair, 1.4))
     return {"orb": (blur(pair, 2.0).contiguous(), y0, x0),
             "lbd": (torch.cat([gx, gy]).contiguous(), torch.cat([ly, ly]), torch.cat([lx, lx]))}
 
 
-def phase_kernels(dev, levels, pair, card):
+def phase_kernels(dev, levels, pair, card, flat=None):
     """Each kernel vs its plain version at the main path's shapes, with its
-    device time, host time, bound and library yardstick."""
+    device time, host time, bound and library yardstick; with ``flat``, the
+    (2B, H, W) stack of a batched frame, the patch gather and FAST also at
+    its shapes (``batched_shapes``)."""
     from plslam_tpu_torch.ops import cuda_fast, cuda_hamming, cuda_patches
+    from plslam_tpu_torch.ops.image import build_pyramid
 
     gen = torch.Generator().manual_seed(0)
     H, W = pair.shape[1:]
     report = []
+    stacks = [(levels, pair)]
+    if flat is not None:
+        stacks.append((build_pyramid(flat, 4, 1.2), flat))
 
     # patch gather: exact on the main path's inputs and on the same stacks
     # with corners up to 8 px past every edge; timed on the main path's
-    errs, rows, P = [], [], 48
-    for name, (imgs, y0, x0) in main_path_corners(levels, pair).items():
+    # (and the batched frame's: 10 launches per graph, its outputs are
+    # 0.35 and 0.91 GB at B = 16)
+    errs, rows, batched, P = [], [], [], 48
+    for (lv, stack), name, (imgs, y0, x0) in (
+            (st, name, c) for st in stacks for name, c in main_path_corners(*st).items()):
         B, N = y0.shape
         wide_y = torch.randint(-P - 8, H + 8, (B, N), generator=gen, dtype=torch.int32).to(dev)
         wide_x = torch.randint(-P - 8, W + 8, (B, N), generator=gen, dtype=torch.int32).to(dev)
@@ -355,50 +410,62 @@ def phase_kernels(dev, levels, pair, card):
         row = time_shape((B, N, P, P),
                          lambda: cuda_patches.gather_patches_batch(imgs, y0, x0, P),
                          lambda: cuda_patches.gather_patches_plain(imgs, y0, x0, P),
-                         {"index": lambda: padded[bi, ys, xs]}, nbytes)
+                         {"index": lambda: padded[bi, ys, xs]}, nbytes,
+                         launches=TIMED_LAUNCHES if stack is pair else 10)
         row["patches_inside"] = inside
-        rows.append(row)
-        say(f"kernel patches {name} {tuple(want.shape)}: exact; device {row['device_ms']:.6f} ms "
+        (rows if stack is pair else batched).append(row)
+        del padded, ys, xs, want, got
+        torch.cuda.empty_cache()
+        say(f"kernel patches {name} {(B, N, P, P)}: exact; device {row['device_ms']:.6f} ms "
             f"(bound {row['bound_ms']:.6f} ms by {row['bound_by']}, share "
             f"{row['share']:.3f}; {inside:.3f} of the patches wholly inside), library "
             f"{row['library_ms']:.6f} ms, host {row['host_ms']:.6f} ms, plain "
             f"{row['plain_ms']:.6f} ms on {card}")
     report.append(summarize("gather_patches_batch", rows, [1, 1], errs,
                             source="plslam_tpu_torch/csrc/patches.cu",
-                            replaces="plslam_tpu/ops/pallas_patches.py:100"))
+                            replaces="plslam_tpu/ops/pallas_patches.py:100",
+                            batched_shapes=batched))
 
     # FAST score + NMS on the four pyramid levels of the scene pair and of
     # uniform noise (dense corners); raw exact off the 3-px frame, nms off
     # the 4-px frame (the kernel zero-pads where the plain form wraps)
-    errs, rows = [], []
-    thr = torch.full((2,), 20.0, device=dev)
-    for li, lvl in enumerate(levels):
-        noise = torch.rand(lvl.shape, generator=gen).mul_(255).to(dev)
-        for kind, imgs in (("scene", lvl.contiguous()), ("noise", noise)):
-            raw, nms = cuda_fast.fast_score_nms_batch(imgs, thr)
-            raw_p, nms_p = cuda_fast.fast_score_nms_plain(imgs, thr)
-            errs.append(check_equal(f"fast raw L{li} {kind}", raw[:, 3:-3, 3:-3],
-                                    raw_p[:, 3:-3, 3:-3]))
-            errs.append(check_equal(f"fast nms L{li} {kind}", nms[:, 4:-4, 4:-4],
-                                    nms_p[:, 4:-4, 4:-4]))
-        imgs = lvl.contiguous()
-        px = imgs.numel()
-        row = time_shape(tuple(imgs.shape), lambda: cuda_fast.fast_score_nms_batch(imgs, thr),
-                         lambda: cuda_fast.fast_score_nms_plain(imgs, thr), {},
-                         12 * px + 4 * thr.numel(), *fast_ops(imgs, thr))
-        # the kernel's work depends on the data: noise makes most pixels candidates
-        row["device_ms_noise"] = graph_ms(lambda: cuda_fast.fast_score_nms_batch(noise, thr))
-        row["bound_ms_noise"] = bound(12 * px + 4 * thr.numel(), *fast_ops(noise, thr))[0]
-        rows.append(row)
-        say(f"kernel fast L{li} {tuple(imgs.shape)}: exact; device {row['device_ms']:.6f} ms "
-            f"(bound {row['bound_ms']:.6f} ms by {row['bound_by']}, share "
-            f"{row['share']:.3f}; on noise {row['device_ms_noise']:.6f} ms, bound "
-            f"{row['bound_ms_noise']:.6f} ms), no single "
-            f"PyTorch call, host {row['host_ms']:.6f} ms, plain {row['plain_ms']:.6f} ms "
-            f"on {card}")
+    errs, rows, batched = [], [], []
+    for lvls, stack in stacks:
+        thr = torch.full((stack.shape[0],), 20.0, device=dev)
+        for li, lvl in enumerate(lvls):
+            noise = torch.rand(lvl.shape, generator=gen).mul_(255).to(dev)
+            for kind, imgs in (("scene", lvl.contiguous()), ("noise", noise)):
+                raw, nms = cuda_fast.fast_score_nms_batch(imgs, thr)
+                raw_p, nms_p = cuda_fast.fast_score_nms_plain(imgs, thr)
+                errs.append(check_equal(f"fast raw L{li} {kind}", raw[:, 3:-3, 3:-3],
+                                        raw_p[:, 3:-3, 3:-3]))
+                errs.append(check_equal(f"fast nms L{li} {kind}", nms[:, 4:-4, 4:-4],
+                                        nms_p[:, 4:-4, 4:-4]))
+            imgs = lvl.contiguous()
+            px = imgs.numel()
+            row = time_shape(tuple(imgs.shape),
+                             lambda: cuda_fast.fast_score_nms_batch(imgs, thr),
+                             lambda: cuda_fast.fast_score_nms_plain(imgs, thr), {},
+                             12 * px + 4 * thr.numel(), *fast_ops(imgs, thr),
+                             launches=TIMED_LAUNCHES if stack is pair else 20)
+            # the kernel's work depends on the data: noise makes most pixels candidates
+            row["device_ms_noise"] = graph_ms(
+                lambda: cuda_fast.fast_score_nms_batch(noise, thr),
+                TIMED_LAUNCHES if stack is pair else 20)
+            row["bound_ms_noise"] = bound(12 * px + 4 * thr.numel(), *fast_ops(noise, thr))[0]
+            (rows if stack is pair else batched).append(row)
+            say(f"kernel fast L{li} {tuple(imgs.shape)}: exact; device {row['device_ms']:.6f} ms "
+                f"(bound {row['bound_ms']:.6f} ms by {row['bound_by']}, share "
+                f"{row['share']:.3f}; on noise {row['device_ms_noise']:.6f} ms, bound "
+                f"{row['bound_ms_noise']:.6f} ms), no single "
+                f"PyTorch call, host {row['host_ms']:.6f} ms, plain {row['plain_ms']:.6f} ms "
+                f"on {card}")
+            del noise, raw, nms, raw_p, nms_p
+            torch.cuda.empty_cache()
     report.append(summarize("fast_score_nms_batch", rows, [1] * len(rows), errs,
                             source="plslam_tpu_torch/csrc/fast.cu",
-                            replaces="plslam_tpu/ops/pallas_fast.py:82"))
+                            replaces="plslam_tpu/ops/pallas_fast.py:82",
+                            batched_shapes=batched))
 
     # Hamming: stereo + f2f, points 1200x1200 and lines 256x256 (2 each per
     # VO frame); beside them Map2KF against a 2048-candidate local map (SLAM
@@ -420,10 +487,32 @@ def phase_kernels(dev, levels, pair, card):
             f"{row['bound_ms']:.6f} ms by {row['bound_by']}, share {row['share']:.3f}), "
             f"library {row['library']} ms, host {row['host_ms']:.6f} ms, plain "
             f"{row['plain_ms']:.6f} ms on {card}")
+    # the batched launch of phase 10's frames: B stereo or f2f matrices at
+    # once, points (B, 1200, 8)^2 and lines (B, 256, 8)^2
+    batched = []
+    for B in HAMMING_BATCHES:
+        for n in (1200, 256):
+            d1 = torch.randint(-2**31, 2**31, (B, n, 8), generator=gen, dtype=torch.int64)
+            d2 = torch.randint(-2**31, 2**31, (B, n, 8), generator=gen, dtype=torch.int64)
+            d1, d2 = d1.to(torch.int32).to(dev), d2.to(torch.int32).to(dev)
+            errs.append(check_equal(f"hamming batched {B}x{n}x{n}",
+                                    cuda_hamming.hamming_distance_matrix_cuda(d1, d2),
+                                    cuda_hamming.hamming_plain(d1, d2)))
+            row = time_shape((B, n, n), lambda: cuda_hamming.hamming_distance_matrix_cuda(d1, d2),
+                             lambda: cuda_hamming.hamming_plain(d1, d2), hamming_library(d1, d2),
+                             B * (2 * n * 32 + n * n * 4), (2.0 * B * n * n * 256, INT8_OPS_PER_S))
+            batched.append(row)
+            say(f"kernel hamming batched {B}x{n}x{n}: exact; device {row['device_ms']:.6f} ms "
+                f"(bound {row['bound_ms']:.6f} ms by {row['bound_by']}, share "
+                f"{row['share']:.3f}), library {row['library']} ms, host {row['host_ms']:.6f} "
+                f"ms, plain {row['plain_ms']:.6f} ms on {card}")
+            del d1, d2
+            torch.cuda.empty_cache()
     per_frame = [HAMMING_VO.get(s, 0) for s in HAMMING_SHAPES]
     report.append(summarize("hamming_distance_matrix_cuda", rows, per_frame, errs,
                             source="plslam_tpu_torch/csrc/hamming.cu",
-                            replaces="plslam_tpu/ops/pallas_hamming.py:45"))
+                            replaces="plslam_tpu/ops/pallas_hamming.py:45",
+                            batched_shapes=batched))
     return report
 
 
@@ -472,6 +561,18 @@ def phase_main_path(dev, scene, poses, frames):
     vo.process(*frames[-1])
     torch.cuda.set_sync_debug_mode(0)
     say("main path: a step made no host sync (sync debug mode 'error')")
+
+    # the step repeats: a second VisualOdometry over the same frames gives
+    # every frame's pose bit for bit (the sums are in a fixed order)
+    again = VisualOdometry(cam, vo.fcfg, vo.tcfg, device=dev)
+    again.initialize(*frames[0])
+    repeat = [again.process(*frames[i]) for i in range(1, len(results) + 1)]
+    same = [torch.equal(a.T_f_w, b.T_f_w) for a, b in zip(results, repeat)]
+    diff = max(float((a.T_f_w - b.T_f_w).abs().max()) for a, b in zip(results, repeat))
+    say(f"main path repeat: {sum(same)}/{len(same)} frames' T_f_w bit-identical across two "
+        f"runs (max |diff| {diff:.3g})")
+    if not all(same):
+        raise AssertionError(f"the VO step does not repeat: frames {same}")
 
     est = np.stack([np.eye(4)] + [r.T_f_w.cpu().numpy() for r in results])
     if est.shape != (len(poses), 4, 4) or not np.isfinite(est).all():
@@ -646,15 +747,25 @@ def phase_local_ba(dev, smi):
     def run():
         return ba.lm_rounds(prob, cam, cfg, prob.p_valid, prob.l_valid, LM_ITERS)
 
-    res, cost, trips = run()  # warm-up
+    first = run()  # warm-up
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    reps = []
     start.record()
     for _ in range(LM_REPS):
-        res, cost, trips = run()
+        reps.append(run())
     end.record()
     end.synchronize()
+    res, cost, trips = reps[-1]
+    # every run of the same problem gives the same iterates and cost, bit for bit
+    fields = ("T_c_w", "points", "lines_orth")
+    same = [all(torch.equal(getattr(r[0], f), getattr(first[0], f)) for f in fields)
+            and torch.equal(r[1], first[1]) and torch.equal(r[2], first[2]) for r in reps]
+    say(f"local BA repeat: {sum(same)}/{len(same)} lm_rounds runs bit-identical to the first "
+        f"(poses, points, lines, cost, trips)")
+    if not all(same):
+        raise AssertionError(f"lm_rounds does not repeat: {same}")
     ms = start.elapsed_time(end)
     ips = LM_ITERS * LM_REPS / (ms / 1e3)
     cost, trips = float(cost), int(trips)
@@ -1149,6 +1260,220 @@ def phase_disk(dev, smi, fixture):
     return by_thread, fps, res["ate_rmse_m"], remap_us
 
 
+def render_stream(seed: int, n_poses: int, scene_kw: dict) -> np.ndarray:
+    """One phase-10 stream, (n_poses, 2, H, W) float32 left and right,
+    rendered in pose order (the scene's noise stream runs in that order)."""
+    from plslam_tpu_torch.io import SyntheticScene, circular_trajectory
+
+    scene = SyntheticScene(seed=seed, **scene_kw)
+    return np.stack([np.stack(scene.render_stereo(T, noise=1.0))
+                     for T in circular_trajectory(n_poses, step_t=0.05)])
+
+
+def start_batch_render():
+    """Render phase 10's streams in spawned worker processes (rendering one
+    752x480 pair takes ~0.8 s of host time) while the build and phase 9's
+    fixture writer run; ``wait_batch_render`` collects them before phase 3,
+    so no timed phase shares the host with them."""
+    import concurrent.futures
+    import multiprocessing
+
+    n_poses = 1 + BATCH_WARMUP + BATCH_FRAMES
+    pool = concurrent.futures.ProcessPoolExecutor(
+        RENDER_WORKERS, mp_context=multiprocessing.get_context("spawn"))
+    return pool, [pool.submit(render_stream, s, n_poses, BATCH_SCENE)
+                  for s in range(max(BATCH_SIZES))]
+
+
+def wait_batch_render(job) -> list:
+    pool, futures = job
+    t = time.perf_counter()
+    try:
+        streams = [f.result(timeout=900) for f in futures]
+    finally:
+        pool.shutdown(cancel_futures=True)
+    say(f"build: phase 10's {len(streams)} streams of {streams[0].shape[0]} pairs rendered "
+        f"({RENDER_WORKERS} worker processes; waited {time.perf_counter() - t:.3f} s after "
+        "the fixture)")
+    return streams
+
+
+def phase_batch(dev, smi, streams):
+    """``BatchedVisualOdometry`` at scripts/bench_batch_vo.py's
+    configuration: the B sweep (aggregate and per-stream frames/s, every
+    frame of every stream good, the launches per frame), the per-stream ATE
+    floors at BATCH_ATE_B, a step without host sync, and at BATCH_MATCH_B
+    each stream against single-stream ``VisualOdometry`` on its frames.
+    functorch's per-example fallback is off: a missing batching rule raises."""
+    from torch._C import _functorch
+
+    from plslam_tpu_torch.batch_vo import BatchedVisualOdometry
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.frontend.frame import FrontendConfig
+    from plslam_tpu_torch.frontend.tracker import TrackerConfig
+    from plslam_tpu_torch.io import SyntheticScene, ate_rmse, circular_trajectory
+    from plslam_tpu_torch.vo import VisualOdometry
+
+    sc = SyntheticScene(seed=0, **BATCH_SCENE)
+    cam = StereoCamera.create(sc.fx, sc.fy, sc.cx, sc.cy, sc.b, width=sc.width,
+                              height=sc.height)
+    fcfg, tcfg = FrontendConfig(**BATCH_WIDTHS), TrackerConfig()
+    n_poses = 1 + BATCH_WARMUP + BATCH_FRAMES
+    gt = np.stack([T[:3, 3] for T in circular_trajectory(n_poses, step_t=0.05)])
+    # every stream's frames staged on the card: (S, H, W) per pose and side
+    L = [torch.from_numpy(np.ascontiguousarray(np.stack([st[i, 0] for st in streams]))).to(dev)
+         for i in range(n_poses)]
+    R = [torch.from_numpy(np.ascontiguousarray(np.stack([st[i, 1] for st in streams]))).to(dev)
+         for i in range(n_poses)]
+    torch.cuda.synchronize()
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    rows, kept = {}, {}
+    _functorch._set_vmap_fallback_enabled(False)
+    try:
+        for B in BATCH_SIZES:
+            bvo = BatchedVisualOdometry(B, cam, fcfg, tcfg, device=dev)
+            bvo.initialize(L[0][:B], R[0][:B])
+            results = [bvo.process(L[i][:B], R[i][:B]) for i in range(1, BATCH_WARMUP + 1)]
+            torch.cuda.synchronize()
+            before = {k: fn.launches for k, fn in wrappers.items()}
+            t0 = time.perf_counter()
+            for i in range(BATCH_WARMUP + 1, n_poses):
+                results.append(bvo.process(L[i][:B], R[i][:B]))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            per_frame = {k: (fn.launches - before[k]) / BATCH_FRAMES for k, fn in wrappers.items()}
+            good = torch.stack([r.good for r in results]).cpu().numpy()    # (frames, B)
+            agg = B * BATCH_FRAMES / dt
+            row = dict(B=B, frames_per_s=agg, per_stream_frames_per_s=agg / B,
+                       launches_per_frame=per_frame, good=int(good.sum()), frames=good.size)
+            row["per_stream_vs_single"] = row["per_stream_frames_per_s"] / rows.get(
+                BATCH_SIZES[0], row)["per_stream_frames_per_s"]
+            rows[B] = row
+            say(f"batch B={B}: {agg:.3f} aggregate frames/s, {agg / B:.3f} per stream "
+                f"(per_stream_vs_single {row['per_stream_vs_single']:.3f}) over {BATCH_FRAMES} "
+                f"timed frames; {int(good.sum())}/{good.size} stream-frames good; launches per "
+                f"frame {per_frame} on {smi}")
+            if not good.all():
+                raise AssertionError(f"B={B}: frames lost tracking (frame, stream): "
+                                     f"{np.argwhere(~good).tolist()}")
+            for k in KERNEL_WRAPPERS:
+                if per_frame[k] != BATCH_LAUNCHES[k]:
+                    raise AssertionError(f"B={B}: {k} launched {per_frame[k]} times per frame, "
+                                         f"want {BATCH_LAUNCHES[k]} at every B")
+            if B == BATCH_ATE_B:
+                # the batched step keeps its state on the card: one more step
+                # (repeating the last frame) under sync-debug "error"
+                torch.cuda.set_sync_debug_mode("error")
+                bvo.process(L[-1][:B], R[-1][:B])
+                torch.cuda.set_sync_debug_mode(0)
+                say(f"batch B={B}: a step made no host sync (sync debug mode 'error')")
+                kept["ate"] = results
+            if B == BATCH_MATCH_B:
+                kept["match"] = results
+        launches = {k: fn.launches for k, fn in wrappers.items()}
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        _functorch._set_vmap_fallback_enabled(True)
+
+    ates = []
+    for b in range(BATCH_ATE_B):
+        est = np.stack([np.zeros(3)] + [r.T_f_w[b, :3, 3].cpu().numpy() for r in kept["ate"]])
+        ates.append(ate_rmse(est, gt, align=False))
+    floors = [max(2.0 * j, 0.01) for j in JAX_CPU_BATCH_ATE]
+    say(f"batch B={BATCH_ATE_B}: per-stream ATE {[round(a, 6) for a in ates]} m (floors "
+        f"{[round(f, 6) for f in floors]}, JAX CPU {list(JAX_CPU_BATCH_ATE)})")
+    for b, (a, f) in enumerate(zip(ates, floors)):
+        if not a <= f:
+            raise AssertionError(f"stream {b}: ATE {a} above floor {f}")
+
+    # each stream of the BATCH_MATCH_B run against single-stream VO on its frames
+    for b in range(BATCH_MATCH_B):
+        vo = VisualOdometry(cam, fcfg, tcfg, device=dev)
+        vo.initialize(L[0][b], R[0][b])
+        single = [vo.process(L[i][b], R[i][b]) for i in range(1, n_poses)]
+        pairs = list(zip(kept["match"], single))
+        good_eq = all(bool(rb.good[b]) == bool(rs.good) for rb, rs in pairs)
+        dT = max(float((rb.T_f_w[b] - rs.T_f_w).abs().max()) for rb, rs in pairs)
+        dn = max(abs(int(rb.n_inliers[b]) - int(rs.n_inliers)) for rb, rs in pairs)
+        bitwise = all(torch.equal(rb.T_f_w[b], rs.T_f_w) for rb, rs in pairs)
+        say(f"batch B={BATCH_MATCH_B} stream {b} vs single-stream VO: good equal {good_eq}, max "
+            f"|T_f_w diff| {dT:.3g}, max |inlier diff| {dn}, bitwise {bitwise}")
+        if not (good_eq and dT <= 2e-2 and dn <= 6):
+            raise AssertionError(f"stream {b} departs from single-stream VO: good {good_eq}, "
+                                 f"dT {dT}, inliers {dn}")
+    return launches, rows, ates
+
+
+def render_depth(scene, T_w_c) -> np.ndarray:
+    """numpy copy of tests/test_rgbd.render_depth: the depth map matching
+    the rendered intensity image (z of the nearest splat; background far)."""
+    T_c_w = np.linalg.inv(T_w_c)
+    depth = np.full((scene.height, scene.width), 50.0, np.float32)
+    for X in np.concatenate([scene.P, scene.LA, scene.LB]):
+        Xc = T_c_w[:3, :3] @ X + T_c_w[:3, 3]
+        if Xc[2] <= 0.3:
+            continue
+        u = scene.cx + scene.fx * Xc[0] / Xc[2]
+        v = scene.cy + scene.fy * Xc[1] / Xc[2]
+        x0, y0 = int(round(u)), int(round(v))
+        if 3 <= x0 < scene.width - 3 and 3 <= y0 < scene.height - 3:
+            depth[y0 - 3:y0 + 4, x0 - 3:x0 + 4] = np.minimum(
+                depth[y0 - 3:y0 + 4, x0 - 3:x0 + 4], Xc[2])
+    for A, B in zip(scene.LA, scene.LB):
+        for t in np.linspace(0, 1, 200):
+            X = A + t * (B - A)
+            Xc = T_c_w[:3, :3] @ X + T_c_w[:3, 3]
+            if Xc[2] <= 0.3:
+                continue
+            u = scene.cx + scene.fx * Xc[0] / Xc[2]
+            v = scene.cy + scene.fy * Xc[1] / Xc[2]
+            x0, y0 = int(round(u)), int(round(v))
+            if 2 <= x0 < scene.width - 2 and 2 <= y0 < scene.height - 2:
+                depth[y0 - 2:y0 + 3, x0 - 2:x0 + 3] = np.minimum(
+                    depth[y0 - 2:y0 + 3, x0 - 2:x0 + 3], Xc[2])
+    return depth
+
+
+def phase_rgbd(dev, smi):
+    """tests/test_rgbd.py's two-frame RGB-D track on the card: extraction
+    through the FAST and patch kernels, f2f, the point-only pose solve."""
+    from plslam_tpu_torch.core import lie
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.frontend import f2f
+    from plslam_tpu_torch.frontend.frame import FrontendConfig
+    from plslam_tpu_torch.frontend.rgbd import extract_rgbd_features
+    from plslam_tpu_torch.frontend.tracker import TrackerConfig, optimize_pose
+    from plslam_tpu_torch.io import SyntheticScene
+
+    scene = SyntheticScene(seed=13)
+    cam = StereoCamera.create(scene.fx, scene.fy, scene.cx, scene.cy, scene.b,
+                              width=scene.width, height=scene.height)
+    cfg = FrontendConfig(n_points=512, n_lines=64, fast_th=15.0)
+    T1 = lie.exp_se3(torch.tensor(RGBD_XI, dtype=torch.float64)).numpy()
+    imgs = [(scene.render_stereo(T)[0], render_depth(scene, T)) for T in (np.eye(4), T1)]
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    f0, f1 = (extract_rgbd_features(torch.from_numpy(il).to(dev), torch.from_numpy(d).to(dev),
+                                    cam, cfg, max_depth=30.0) for il, d in imgs)
+    pts, ls, _, _ = f2f.track_frame_to_frame(f0, f1)
+    est, _, _ = optimize_pose(pts, ls, cam, TrackerConfig(use_lines=False))
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    err = float(np.abs(est.DT.cpu().numpy() - np.linalg.inv(T1))[:3, 3].max())
+    n_pts = int(f0.points.valid.sum())
+    say(f"rgbd: two-frame track, translation error {err:.6f} m (limit 0.02), {n_pts} points "
+        f"with depth on frame 0, good {bool(est.good)}; launches {launches} on {smi}")
+    if not (bool(est.good) and err < 0.02 and n_pts > 80):
+        raise AssertionError(f"RGB-D track: good {bool(est.good)}, error {err}, points {n_pts}")
+    for k in KERNEL_WRAPPERS:
+        if k != "hamming_distance_matrix_cuda" and launches[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on the RGB-D path")
+    return launches, err
+
+
 def assert_no_jax() -> None:
     """The port imports nothing of JAX or of the JAX package."""
     bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "plslam_tpu"))
@@ -1172,21 +1497,24 @@ def main(argv=()) -> int:
     say(f"device: {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
-    fixture = writer = None
+    fixture = writer = render = None
     if not args.kernels:
         fixture = tempfile.mkdtemp(prefix="chip_smoke_disk_")
         writer = start_disk_fixture(fixture)
+        render = start_batch_render()
     try:
-        return run_phases(args, dev, smi, kind, fixture, writer)
+        return run_phases(args, dev, smi, kind, fixture, writer, render)
     finally:
         if writer is not None and writer.poll() is None:
             writer.kill()
             writer.wait()
+        if render is not None:
+            render[0].shutdown(cancel_futures=True)
         if fixture is not None:
             shutil.rmtree(fixture, ignore_errors=True)
 
 
-def run_phases(args, dev, smi, kind, fixture, writer) -> int:
+def run_phases(args, dev, smi, kind, fixture, writer, render=None) -> int:
     from plslam_tpu_torch.io import SyntheticScene, circular_trajectory
     from plslam_tpu_torch.ops import cuda_lib
     from plslam_tpu_torch.ops.image import build_pyramid
@@ -1199,6 +1527,7 @@ def run_phases(args, dev, smi, kind, fixture, writer) -> int:
             say(f"  ptxas: {line.strip()}")
     if writer is not None:
         wait_disk_fixture(writer)
+    streams = wait_batch_render(render) if render is not None else None
 
     # bench.py's configuration, frames staged on the device
     scene = SyntheticScene(n_points=600, n_lines=60, seed=0, width=752, height=480,
@@ -1209,7 +1538,14 @@ def run_phases(args, dev, smi, kind, fixture, writer) -> int:
     pair = torch.stack(frames[0])
     levels = build_pyramid(pair, 4, 1.2)
 
-    report = phase_kernels(dev, levels, pair, smi)
+    flat = None
+    if streams is not None:
+        # a batched frame at the sweep's largest B: frame 0 of every stream,
+        # (2B, H, W) as BatchedVisualOdometry stacks it
+        flat = torch.from_numpy(np.stack([st[0] for st in streams]).reshape(
+            (-1,) + streams[0].shape[2:])).to(dev)
+    report = phase_kernels(dev, levels, pair, smi, flat)
+    del flat
     if args.kernels:
         assert_no_jax()
         say(json.dumps({"kernels": report}))
@@ -1220,12 +1556,15 @@ def run_phases(args, dev, smi, kind, fixture, writer) -> int:
     ep_launches, ep_fps, ep_ate = phase_endpoint_slam(dev, scene, smi)
     loop_launches, loop_kf_s = phase_loop_closure(dev, smi)
     disk_launches, disk_fps, disk_ate, remap_us = phase_disk(dev, smi, fixture)
+    batch_launches, batch_rows, batch_ates = phase_batch(dev, smi, streams)
+    rgbd_launches, rgbd_err = phase_rgbd(dev, smi)
     for k in report:
-        by_path = {"vo": launches[k["name"]], "slam": slam_launches[k["name"]],
-                   "slam_endpoint": ep_launches[k["name"]], "loop": loop_launches[k["name"]],
-                   "disk": disk_launches[k["name"]]}
-        k["launches"] = by_path["vo"] + sum(sum(v.values()) for p, v in by_path.items()
-                                            if p != "vo")
+        by_thread = {"slam": slam_launches[k["name"]], "slam_endpoint": ep_launches[k["name"]],
+                     "loop": loop_launches[k["name"]], "disk": disk_launches[k["name"]]}
+        by_path = {"vo": launches[k["name"]], **by_thread, "batch": batch_launches[k["name"]],
+                   "rgbd": rgbd_launches[k["name"]]}
+        k["launches"] = (by_path["vo"] + by_path["batch"] + by_path["rgbd"]
+                         + sum(sum(v.values()) for v in by_thread.values()))
         k["launches_by_path"] = by_path
     assert_no_jax()
     say(f"main path: {fps:.3f} frames/s, ATE {ate:.6f} m on {smi}")
@@ -1235,6 +1574,10 @@ def run_phases(args, dev, smi, kind, fixture, writer) -> int:
         f"replay {loop_kf_s:.3f} keyframes/s on {smi}")
     say(f"disk path: {disk_fps:.3f} CLI frames/s, keyframe ATE {disk_ate:.6f} m; device remap "
         f"{remap_us:.3f} us per pair on {smi}")
+    fps_by_b = {B: round(r["frames_per_s"], 3) for B, r in batch_rows.items()}
+    say(f"batch path: aggregate frames/s by B {fps_by_b}, B={BATCH_ATE_B} ATEs "
+        f"{[round(a, 6) for a in batch_ates]} m; RGB-D track error {rgbd_err:.6f} m on {smi}")
+    say(json.dumps({"batch_vo": list(batch_rows.values())}))
     say(json.dumps({"kernels": report}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

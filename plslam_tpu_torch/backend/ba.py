@@ -9,10 +9,10 @@ world Pluecker lines with box-plus updates.  The two-round schedule
 (optimize, drop chi^2 > 5.991 edges, re-optimize) is kept.
 
 Differences of form from the JAX package, none of semantics:
-- normal-equation blocks accumulate with ``index_add_``, the camera-
-  landmark coupling W through a flat ``cam * n_lm + lm`` index (on CUDA
-  these are atomics, so sums are not bit-deterministic; the iterative
-  refinement step of ``solve_reduced`` keeps that harmless);
+- normal-equation blocks are segment sums in a fixed order
+  (``core/segment.py``), the camera-landmark coupling W over a flat
+  ``cam * n_lm + lm`` index; the sort behind them is planned once per
+  problem (``assembly_plans``), so an LM run repeats bit for bit;
 - the reduced camera system is factored with ``torch.linalg.cholesky_ex``;
   a failed factorization gives a NaN step, which the LM rejects, as the
   JAX scan-Cholesky's NaN columns do;
@@ -32,6 +32,7 @@ from ..core import lie, linalg
 from ..core.camera import StereoCamera
 from ..core.plucker import (jac_plucker_wrt_orth, orth_plus, orth_to_plucker,
                             plucker_motion_matrix)
+from ..core.segment import SegmentPlan, segment_plan, segment_sum
 
 CHI2_TH = 5.991  # 2-DoF chi-square 95% gate (mapHandler.cpp:5978, :6131)
 HOMOG = 1e-7
@@ -220,20 +221,49 @@ class _Assembled(NamedTuple):
     cost: torch.Tensor
 
 
-def _accumulate(cam_idx, lm_idx, K, n_lm, w, Jc, Jl, e):
-    """Weighted normal-equation blocks of one modality, scattered per
-    camera, per landmark and per (camera, landmark) pair."""
-    d = Jl.shape[-1]
-    wJc = w[:, None, None] * Jc
-    wJl = w[:, None, None] * Jl
-    z = Jc.new_zeros
-    Hcc = z((K, 6, 6)).index_add_(0, cam_idx, wJc.transpose(1, 2) @ Jc)
-    bc = z((K, 6)).index_add_(0, cam_idx, (wJc.transpose(1, 2) @ e[..., None])[..., 0])
-    Hll = z((n_lm, d, d)).index_add_(0, lm_idx, wJl.transpose(1, 2) @ Jl)
-    bl = z((n_lm, d)).index_add_(0, lm_idx, (wJl.transpose(1, 2) @ e[..., None])[..., 0])
-    W = z((K * n_lm, 6, d)).index_add_(0, cam_idx * n_lm + lm_idx,
-                                       wJc.transpose(1, 2) @ Jl)
-    return Hcc, bc, Hll, bl, W.view(K, n_lm, 6, d)
+class _ModalityPlans(NamedTuple):
+    """Segment plans of one modality's observations: per camera, per
+    landmark and per (camera, landmark) pair."""
+
+    cam: SegmentPlan
+    lm: SegmentPlan
+    pair: SegmentPlan
+
+
+class AssemblyPlans(NamedTuple):
+    points: _ModalityPlans
+    lines: _ModalityPlans
+
+
+def _modality_plans(cam_idx, lm_idx, K: int, n_lm: int) -> _ModalityPlans:
+    return _ModalityPlans(segment_plan(cam_idx, K), segment_plan(lm_idx, n_lm),
+                          segment_plan(cam_idx * n_lm + lm_idx, K * n_lm))
+
+
+def assembly_plans(prob: BAProblem) -> AssemblyPlans:
+    """The observation indices' segment plans; they depend only on the
+    index fields, so one plan serves every LM trip of a problem."""
+    K = prob.T_c_w.shape[0]
+    return AssemblyPlans(
+        _modality_plans(prob.p_cam, prob.p_lm, K, prob.points.shape[0]),
+        _modality_plans(prob.l_cam, prob.l_lm, K, prob.lines_orth.shape[0]))
+
+
+def _accumulate(plans: _ModalityPlans, w, Jc, Jl, e):
+    """Weighted normal-equation blocks of one modality, summed per camera,
+    per landmark and per (camera, landmark) pair in the fixed order of
+    ``core/segment.py`` (the same sums on every run and device)."""
+    N, d = Jl.shape[0], Jl.shape[-1]
+    wJcT = (w[:, None, None] * Jc).transpose(1, 2)
+    wJlT = (w[:, None, None] * Jl).transpose(1, 2)
+    cam = segment_sum(torch.cat([(wJcT @ Jc).reshape(N, 36),
+                                 (wJcT @ e[..., None]).reshape(N, 6)], dim=1), plans.cam)
+    lm = segment_sum(torch.cat([(wJlT @ Jl).reshape(N, d * d),
+                                (wJlT @ e[..., None]).reshape(N, d)], dim=1), plans.lm)
+    W = segment_sum(wJcT @ Jl, plans.pair)
+    K, n_lm = cam.shape[0], lm.shape[0]
+    return (cam[:, :36].reshape(K, 6, 6), cam[:, 36:], lm[:, :d * d].reshape(n_lm, d, d),
+            lm[:, d * d:], W.view(K, n_lm, 6, d))
 
 
 def _masked_cost(e, sigma2, active, robust):
@@ -241,19 +271,19 @@ def _masked_cost(e, sigma2, active, robust):
 
 
 def assemble(prob: BAProblem, cam: StereoCamera, cfg: BAConfig, p_active, l_active,
-             robust: bool = True) -> _Assembled:
-    K = prob.T_c_w.shape[0]
-    P = prob.points.shape[0]
-    L = prob.lines_orth.shape[0]
+             robust: bool = True, plans: Optional[AssemblyPlans] = None) -> _Assembled:
+    """The normal equations; ``plans`` are ``assembly_plans(prob)``, built
+    here when not given."""
+    plans = assembly_plans(prob) if plans is None else plans
 
     e_p, Jc_p, Jp_p = point_obs_residuals(prob, cam)
     w_p = torch.where(p_active, _w(e_p, robust) * prob.p_sigma2, 0.0)
-    Hcc, bc, Hpp, bp, Wp = _accumulate(prob.p_cam, prob.p_lm, K, P, w_p, Jc_p, Jp_p, e_p)
+    Hcc, bc, Hpp, bp, Wp = _accumulate(plans.points, w_p, Jc_p, Jp_p, e_p)
     cost = _masked_cost(e_p, prob.p_sigma2, p_active, robust)
 
     e_l, Jc_l, Jl_l = line_obs_residuals(prob, cam)
     w_l = torch.where(l_active, _w(e_l, robust) * prob.l_sigma2, 0.0)
-    Hcc_l, bc_l, Hll, bl, Wl = _accumulate(prob.l_cam, prob.l_lm, K, L, w_l, Jc_l, Jl_l, e_l)
+    Hcc_l, bc_l, Hll, bl, Wl = _accumulate(plans.lines, w_l, Jc_l, Jl_l, e_l)
     cost = cost + _masked_cost(e_l, prob.l_sigma2, l_active, robust)
     return _Assembled(Hcc + Hcc_l, bc + bc_l, Hpp, bp, Wp, Hll, bl, Wl, cost)
 
@@ -362,8 +392,7 @@ def solve_reduced(Hcc, S_off, rhs, lam, free) -> torch.Tensor:
     L, ok = linalg.cholesky(Smat)
     x = linalg.cho_solve(L, b)
     # one step of iterative refinement: the reduced system's conditioning
-    # (~1e6 on large maps) is at the edge of f32 Cholesky, and the
-    # scatter sums' order (atomics on CUDA) moves the raw solution
+    # (~1e6 on large maps) is at the edge of f32 Cholesky
     x = x + linalg.cho_solve(L, b - Smat @ x)
     x = torch.where(ok, x, torch.nan)
     return x.reshape(K, 6) * fmask[:, None]
@@ -428,8 +457,9 @@ def lm_rounds(prob: BAProblem, cam: StereoCamera, cfg: BAConfig, p_active, l_act
     streak = torch.zeros((), dtype=torch.int32, device=dev)
     trips = torch.zeros((), dtype=torch.int32, device=dev)
     exit_streak = cfg.lm_exit_streak if cfg.early_exit else iters + 1
+    plans = assembly_plans(prob)
     for _ in range(iters):
-        a = assemble(prob, cam, cfg, p_active, l_active, robust)
+        a = assemble(prob, cam, cfg, p_active, l_active, robust, plans)
         cand = apply_update(prob, *solve_schur(a, prob, cfg, lam))
         new_cost = total_cost(cand, cam, cfg, p_active, l_active, robust)
         run = streak < exit_streak
@@ -514,6 +544,9 @@ def bundle_adjust_chunked(prob: BAProblem, cam: StereoCamera,
         return sum(total_cost(_chunk(prob, c, T, pts[c], ls[c]), cam, cfg, p_act[c], l_act[c])
                    for c in range(C))
 
+    plans = [assembly_plans(_chunk(prob, c, prob.T_c_w, prob.points[c], prob.lines_orth[c]))
+             for c in range(C)]
+
     def rounds(T, pts, ls, p_act, l_act, iters):
         lam = torch.full((), cfg.lambda_init, dtype=dtype, device=dev)
         cost = cost_all(T, pts, ls, p_act, l_act)
@@ -525,7 +558,7 @@ def bundle_adjust_chunked(prob: BAProblem, cam: StereoCamera,
             parts = []
             for c in range(C):
                 pr = _chunk(prob, c, T, pts[c], ls[c])
-                a = assemble(pr, cam, cfg, p_act[c], l_act[c])
+                a = assemble(pr, cam, cfg, p_act[c], l_act[c], plans=plans[c])
                 Hpp_inv, Hll_inv, S_c, rhs_c = schur_partials(a, pr, lam, cfg, mode="global")
                 Hcc, S_off, rhs = Hcc + a.Hcc, S_off + S_c, rhs + rhs_c
                 parts.append((a, Hpp_inv, Hll_inv))

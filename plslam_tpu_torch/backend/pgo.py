@@ -13,7 +13,8 @@ X = Z^-1 T_i^-1 T_j and e = log X,
 Jr^-1 the inverse right Jacobian of SE(3) (Barfoot, "State Estimation for
 Robotics", 7.1.5).  The poses come from host float64 and the PGO runs in
 float64; the fixed-trip loop takes a zero step when the solve is not
-finite, with no host sync.
+finite, with no host sync.  The edges' blocks are summed in a fixed order
+(``core/segment.py``), so a PGO repeats bit for bit.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from ..core import lie, linalg
 from ..core.plucker import transform_plucker
+from ..core.segment import SegmentPlan, segment_plan, segment_sum
 
 
 class PoseGraph(NamedTuple):
@@ -86,25 +88,34 @@ def edge_res_and_jac(Ti, Tj, Zij):
     return e, -Jr_inv @ _adjoint(lie.inv_se3(Tj) @ Ti), Jr_inv
 
 
-def _scatter_blocks(K, rows, cols, blocks):
-    """(K, K, 6, 6) sum of blocks at (rows, cols)."""
-    H = blocks.new_zeros((K * K, 6, 6))
-    return H.index_add_(0, rows * K + cols, blocks).view(K, K, 6, 6)
+class SystemPlans(NamedTuple):
+    """Segment plans of the edges' blocks in H and b (``core/segment.py``)."""
+
+    H: SegmentPlan
+    b: SegmentPlan
 
 
-def build_system(g: PoseGraph):
-    """The dense Gauss-Newton system (H (K, K, 6, 6), b (K, 6), cost)."""
+def system_plans(g: PoseGraph) -> SystemPlans:
+    """They depend only on the edge indices: one serves every iteration."""
     K = g.T_w_k.shape[0]
+    rows = torch.cat([g.e_i, g.e_j, g.e_i, g.e_j])
+    cols = torch.cat([g.e_i, g.e_j, g.e_j, g.e_i])
+    return SystemPlans(segment_plan(rows * K + cols, K * K),
+                       segment_plan(torch.cat([g.e_i, g.e_j]), K))
+
+
+def build_system(g: PoseGraph, plans: SystemPlans | None = None):
+    """The dense Gauss-Newton system (H (K, K, 6, 6), b (K, 6), cost),
+    blocks summed in a fixed order."""
+    K = g.T_w_k.shape[0]
+    plans = system_plans(g) if plans is None else plans
     e, Ji, Jj = edge_res_and_jac(g.T_w_k[g.e_i], g.T_w_k[g.e_j], g.e_T)
     w = torch.where(g.e_valid, g.e_info, 0.0)[:, None, None]
     JiT, JjT = Ji.transpose(1, 2), Jj.transpose(1, 2)
-    rows = torch.cat([g.e_i, g.e_j, g.e_i, g.e_j])
-    cols = torch.cat([g.e_i, g.e_j, g.e_j, g.e_i])
-    H = _scatter_blocks(K, rows, cols, torch.cat([w * JiT @ Ji, w * JjT @ Jj,
-                                                  w * JiT @ Jj, w * JjT @ Ji]))
-    b = g.T_w_k.new_zeros((K, 6)).index_add_(
-        0, torch.cat([g.e_i, g.e_j]),
-        torch.cat([(w * JiT @ e[..., None])[..., 0], (w * JjT @ e[..., None])[..., 0]]))
+    H = segment_sum(torch.cat([w * JiT @ Ji, w * JjT @ Jj, w * JiT @ Jj, w * JjT @ Ji]),
+                    plans.H).view(K, K, 6, 6)
+    b = segment_sum(torch.cat([(w * JiT @ e[..., None])[..., 0],
+                               (w * JjT @ e[..., None])[..., 0]]), plans.b)
     cost = torch.sum(w[:, 0, 0] * torch.sum(e * e, dim=-1))
     return H, b, cost
 
@@ -118,8 +129,9 @@ def optimize(g: PoseGraph, iters: int = 10, damping: float = 1e-6) -> PoseGraph:
     I6 = torch.eye(6, dtype=dtype, device=dev)
     gauge = I6 * (1.0 - free)[:, None, None] + damping * I6
     T = g.T_w_k
+    plans = system_plans(g)
     for _ in range(iters):
-        H, b, _ = build_system(g._replace(T_w_k=T))
+        H, b, _ = build_system(g._replace(T_w_k=T), plans)
         Hm = H * free[:, None, None, None] * free[None, :, None, None]
         Hm.diagonal(dim1=0, dim2=1).add_(gauge.permute(1, 2, 0))
         Hmat = Hm.permute(0, 2, 1, 3).reshape(6 * K, 6 * K)

@@ -1,0 +1,132 @@
+"""Batched multi-stream visual odometry (``plslam_tpu.batch_vo``): B
+independent stereo streams tracked in lockstep on one device.
+
+Per frame, detection runs once on the flat (2B, H, W) stack of every
+stream's pair (stream b's left and right images at 2b and 2b + 1), with
+each stream's adaptive FAST threshold repeated for its two images; the
+outputs are reshaped to (B, 2, ...).  The step after detection
+(``vo.match_and_track``: stereo matching, f2f association, the robust GN,
+the keyframe statistics, the FAST update) runs under ``torch.func.vmap``
+over the stream axis.  A vmapped Hamming call is one batched launch (the
+operator's vmap rule in ``ops/cuda_hamming.py``), so a frame launches each
+kernel as often as a single-stream frame does, whatever B is: 4 FAST
+(one per pyramid level), 2 patch gathers (ORB, LBD) and 4 Hamming (stereo
+and f2f, points and lines).  All state is (B,)-leading on the device; a
+step makes no host sync.
+
+Semantics per stream are ``VisualOdometry``'s: the same functions, the
+same state.  The (2B, H, W) detection equals the per-stream (2, H, W) one
+on the CPU; on the card the batched products may round differently, so a
+stream is held to its single-stream run within a tolerance, not bit for
+bit.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import Optional
+
+import torch
+
+from .core.camera import StereoCamera
+from .frontend.features import StereoFeatures
+from .frontend.frame import (FrontendConfig, _detect_describe_lines_batch,
+                             _detect_describe_points_batch)
+from .frontend.tracker import TrackerConfig
+from .vo import FrameResult, VOParams, VOState, match_and_track, match_stereo
+
+
+def _unflatten(tree, B: int):
+    """(2B, ...) leaves of a detector output -> (B, 2, ...)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.reshape((B, 2) + tree.shape[1:])
+    out = [_unflatten(x, B) for x in tree]
+    return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
+
+
+class BatchedVisualOdometry:
+    """Track ``batch`` stereo streams in lockstep.  ``process`` takes (B, H,
+    W) left and right images and returns a ``FrameResult`` whose fields
+    carry a leading (B,) axis."""
+
+    def __init__(self, batch: int, cam: StereoCamera, fcfg: FrontendConfig = FrontendConfig(),
+                 tcfg: TrackerConfig = TrackerConfig(), *, device="cuda",
+                 dtype=torch.float32, adaptative_fast: bool = True,
+                 use_motion_model: bool = False, sharding=None):
+        if sharding is not None:
+            raise NotImplementedError(
+                "BatchedVisualOdometry(sharding=...): the batch axis across devices is "
+                "ROADMAP.md queue 1's distribution item, not yet ported")
+        self.B = batch
+        self.cam = cam
+        self.fcfg = fcfg
+        self.tcfg = tcfg
+        self.device = torch.device(device)
+        self.dtype = dtype
+        self.params = VOParams(adaptative_fast=adaptative_fast,
+                               use_motion_model=use_motion_model)
+        self._match = torch.func.vmap(functools.partial(match_stereo, cam=cam, fcfg=fcfg))
+        self._step = torch.func.vmap(functools.partial(
+            match_and_track, cam=cam, fcfg=fcfg, tcfg=tcfg, prm=self.params))
+        self.state: Optional[VOState] = None
+
+    def _stack(self, img_l: torch.Tensor, img_r: torch.Tensor) -> torch.Tensor:
+        """(B, H, W) left and right -> the flat (2B, H, W) f32 stack."""
+        if img_l.device != self.device or img_r.device != self.device:
+            raise ValueError(f"images must be on {self.device}, got "
+                             f"{img_l.device}, {img_r.device}")
+        if img_l.shape[0] != self.B or img_r.shape != img_l.shape:
+            raise ValueError(f"want two ({self.B}, H, W) stacks, got "
+                             f"{tuple(img_l.shape)}, {tuple(img_r.shape)}")
+        imgs = torch.stack([img_l, img_r], dim=1).to(torch.float32)
+        return imgs.reshape((2 * self.B,) + imgs.shape[2:])
+
+    def _detect(self, flat: torch.Tensor, fast_th: torch.Tensor):
+        """One detection call per kind on the flat stack, reshaped to (B, 2, ...)."""
+        pts = _detect_describe_points_batch(flat, self.fcfg, fast_th.repeat_interleave(2))
+        ls = _detect_describe_lines_batch(flat, self.fcfg)
+        return _unflatten(pts, self.B), _unflatten(ls, self.B)
+
+    def initialize(self, img_l: torch.Tensor, img_r: torch.Tensor) -> StereoFeatures:
+        """The first frames of every stream; returns their (B,)-leading
+        features."""
+        B, dev, dt = self.B, self.device, self.dtype
+        flat = self._stack(img_l, img_r)
+        th = torch.full((B,), self.fcfg.fast_th, dtype=torch.float32, device=dev)
+        feats = self._match(*self._detect(flat, th))
+        I = torch.eye(4, dtype=dt, device=dev).expand(B, 4, 4).clone()
+        Z = torch.zeros((B, 6, 6), dtype=dt, device=dev)
+        self.state = VOState(
+            features=feats, T_f_w=I, T_f_w_cov=Z, T_prevKF=I.clone(),
+            cov_prevKF_accum=Z.clone(),
+            entropy_first=torch.full((B,), -9.9e8, dtype=dt, device=dev),
+            frames_since_kf=torch.zeros((B,), dtype=torch.int32, device=dev),
+            prev_was_kf=torch.ones((B,), dtype=torch.bool, device=dev),
+            fast_th=th.clone(), prev_DT=I.clone(),
+            prev_good=torch.zeros((B,), dtype=torch.bool, device=dev))
+        return feats
+
+    def process(self, img_l: torch.Tensor, img_r: torch.Tensor) -> FrameResult:
+        """One tracking step of every stream."""
+        if self.state is None:
+            raise RuntimeError("call initialize() first")
+        kp_pair, seg_pair = self._detect(self._stack(img_l, img_r), self.state.fast_th)
+        res, self.state = self._step(kp_pair, seg_pair, self.state)
+        return res
+
+    def mark_keyframe(self, mask) -> None:
+        """Reset the keyframe statistics of the streams where ``mask`` (B,)
+        is true."""
+        st = self.state
+        m = torch.as_tensor(mask, dtype=torch.bool, device=self.device)
+        if m.shape != (self.B,):
+            raise ValueError(f"mark_keyframe: want a ({self.B},) mask, got {tuple(m.shape)}")
+
+        def sel(new, old):
+            return torch.where(m.reshape((-1,) + (1,) * (old.dim() - 1)), new, old)
+
+        self.state = st._replace(
+            T_prevKF=sel(st.T_f_w, st.T_prevKF),
+            cov_prevKF_accum=sel(torch.zeros_like(st.cov_prevKF_accum), st.cov_prevKF_accum),
+            frames_since_kf=sel(torch.zeros_like(st.frames_since_kf), st.frames_since_kf),
+            prev_was_kf=sel(torch.ones_like(st.prev_was_kf), st.prev_was_kf))

@@ -1,13 +1,15 @@
 """State carried across from the JAX package, as numpy arrays.
 
 There are no learned weights.  What crosses over is the camera, the
-feature sets, the tracking state (``VOState``), BA problems and the whole
-SLAM map with the loop closer's state (``map_state_from_numpy``, the
-checkpoint layout); the descriptor tables are re-derived by the same numpy
-code in ``ops/orb.py``, ``ops/lbd.py`` and ``ops/image.py``.  Inputs are numpy arrays, dicts of them, or
-NamedTuples of them (e.g. ``jax.tree.map(np.asarray, state)`` on the JAX
-side); this module never imports jax.  uint32 descriptor words become
-int32 by a bit-preserving view, keeping the LSB-first bit order.
+feature sets (with or without a leading stream axis), the tracking state
+(``VOState``, single or batched), BA problems and the whole SLAM map with
+the loop closer's state (``map_state_from_numpy``, the checkpoint layout);
+the descriptor tables are re-derived by the same numpy code in
+``ops/orb.py``, ``ops/lbd.py`` and ``ops/image.py``.  Inputs are numpy
+arrays, dicts of them, or NamedTuples of them (e.g.
+``jax.tree.map(np.asarray, state)`` on the JAX side); this module never
+imports jax.  uint32 descriptor words become int32 by a bit-preserving
+view, keeping the LSB-first bit order.
 """
 
 from __future__ import annotations
@@ -68,6 +70,18 @@ def vo_state_from_numpy(state, device) -> VOState:
            if k != "features"}
     out["fast_th"] = out["fast_th"].to(torch.float32)
     return VOState(features=stereo_features_from_numpy(f["features"], device), **out)
+
+
+def batch_vo_state_from_numpy(state, device) -> VOState:
+    """A ``BatchedVisualOdometry`` state (every field (B,)-leading, the
+    JAX package's ``BatchedVisualOdometry.state`` as numpy) on ``device``;
+    raises when the fields disagree on B."""
+    out = vo_state_from_numpy(state, device)
+    sizes = {x.shape[0] if x.dim() else None
+             for x in (*out.features.points, *out.features.lines, *out[1:])}
+    if len(sizes) != 1 or None in sizes:
+        raise ValueError(f"batched VO state: fields disagree on the stream axis: {sizes}")
+    return out
 
 
 def stereo_features_to_numpy(feats: StereoFeatures) -> dict:

@@ -133,11 +133,9 @@ def inv_se3(T: torch.Tensor) -> torch.Tensor:
 def adjoint_se3(T: torch.Tensor) -> torch.Tensor:
     """Adj = [[R, skew(t) R], [0, R]] for the [t; w] layout."""
     R = T[..., :3, :3]
-    A = torch.zeros(T.shape[:-2] + (6, 6), dtype=T.dtype, device=T.device)
-    A[..., :3, :3] = R
-    A[..., :3, 3:] = skew(T[..., :3, 3]) @ R
-    A[..., 3:, 3:] = R
-    return A
+    # built by concatenation, not slice writes, so it also runs under vmap
+    return torch.cat([torch.cat([R, skew(T[..., :3, 3]) @ R], dim=-1),
+                      torch.cat([torch.zeros_like(R), R], dim=-1)], dim=-2)
 
 
 def cov_Tinv(T: torch.Tensor, cov: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,9 @@
 // 256-bit Hamming distance matrix on the tensor cores: (N1, 8) x (N2, 8)
 // int32 words -> (N1, N2) int32, popcount(a XOR b) summed over the 8 words,
-// for any N1 and N2 (0 and 1 included).
+// for any N1 and N2 (0 and 1 included); and B such matrices in one launch,
+// (B, N1, 8) x (B, N2, 8) -> (B, N1, N2), blockIdx.z the stream, each
+// operand at its own stride per stream (0 broadcasts one set to every
+// stream).  The 2-D call is B = 1.
 //
 // Replaces the Pallas TPU kernel plslam_tpu/ops/pallas_hamming.py
 // (hamming_distance_matrix_pallas, body _kernel), which unpacks the bits to
@@ -121,10 +124,15 @@ __device__ __forceinline__ void store_tile(int (&sc)[TM][CSTRIDE], const int (&a
 
 __global__ void __launch_bounds__(THREADS) hamming_mma_kernel(
     const unsigned* __restrict__ d1, const unsigned* __restrict__ d2, int* __restrict__ out,
-    int N1, int N2) {
+    int N1, int N2, long long stride1, long long stride2) {
   __shared__ __align__(16) unsigned sa[TM][WORDS];
   __shared__ __align__(16) unsigned sb[TN][WORDS];
   __shared__ __align__(16) int sc[TM][CSTRIDE];
+  // this block's stream: its operands at their strides (in words), its
+  // output the z-th dense (N1, N2) matrix
+  d1 += blockIdx.z * stride1;
+  d2 += blockIdx.z * stride2;
+  out += (size_t)blockIdx.z * N1 * N2;
   const int r0 = blockIdx.y * TM, c0 = blockIdx.x * TN;
   stage_tile(sa, sb, d1, d2, r0, c0, N1, N2);
 
@@ -148,13 +156,16 @@ __global__ void __launch_bounds__(THREADS) hamming_mma_kernel(
 
 }  // namespace
 
-extern "C" int plslam_hamming(const int* d1, const int* d2, int* out, int N1, int N2,
-                              void* stream) {
-  if (N1 > 0 && N2 > 0) {
-    const dim3 grid((N2 + TN - 1) / TN, (N1 + TM - 1) / TM);
+// B streams (B <= 65535, the grid's z limit); stride1 and stride2 in
+// int32 words between one stream's descriptors and the next's.
+extern "C" int plslam_hamming(const int* d1, const int* d2, int* out, int B, int N1, int N2,
+                              long long stride1, long long stride2, void* stream) {
+  if (B > 65535) return (int)cudaErrorInvalidValue;
+  if (B > 0 && N1 > 0 && N2 > 0) {
+    const dim3 grid((N2 + TN - 1) / TN, (N1 + TM - 1) / TM, B);
     hamming_mma_kernel<<<grid, THREADS, 0, (cudaStream_t)stream>>>(
         reinterpret_cast<const unsigned*>(d1), reinterpret_cast<const unsigned*>(d2), out, N1,
-        N2);
+        N2, stride1, stride2);
   }
   return (int)cudaGetLastError();
 }

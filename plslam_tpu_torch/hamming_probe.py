@@ -43,8 +43,8 @@ def build() -> ctypes.CDLL:
         if "Used" in line:
             print(f"  ptxas: {line.strip()}")
     lib = ctypes.CDLL(str(path))
-    P, I = ctypes.c_void_p, ctypes.c_int
-    lib.plslam_hamming.argtypes = [P, P, P, I, I, P]
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.plslam_hamming.argtypes = [P, P, P, I, I, I, LL, LL, P]
     lib.probe_hamming.argtypes = [P, P, P, I, I, I, P]
     lib.plslam_hamming.restype = lib.probe_hamming.restype = I
     return lib
@@ -55,7 +55,7 @@ def launcher(lib, name: str):
     def launch(d1, d2, out):
         stream = torch.cuda.current_stream().cuda_stream
         args = (d1.data_ptr(), d2.data_ptr(), out.data_ptr(), d1.shape[0], d2.shape[0])
-        err = (lib.plslam_hamming(*args, stream) if name == "shipped"
+        err = (lib.plslam_hamming(*args[:3], 1, *args[3:], 0, 0, stream) if name == "shipped"
                else lib.probe_hamming(*args, VARIANTS[name], stream))
         if err:
             raise RuntimeError(f"hamming probe {name}: CUDA error {err}")

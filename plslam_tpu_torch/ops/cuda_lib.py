@@ -33,11 +33,12 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_LL = ctypes.c_longlong
 # C entry points: name -> argument types; each returns a cudaError_t
 SIGNATURES = {
     "plslam_gather_patches": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "plslam_fast_score_nms": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "plslam_hamming": (_P, _P, _P, _I, _I, _P),
+    "plslam_hamming": (_P, _P, _P, _I, _I, _I, _LL, _LL, _P),
 }
 
 

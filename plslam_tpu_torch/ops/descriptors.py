@@ -41,6 +41,7 @@ def popcount32(x: torch.Tensor) -> torch.Tensor:
 
 
 def hamming_distance_matrix(d1: torch.Tensor, d2: torch.Tensor) -> torch.Tensor:
-    """(N1, 8) x (N2, 8) int32 -> (N1, N2) int32, popcount(a XOR b)."""
-    x = popcount32(d1[:, None, :] ^ d2[None, :, :])
+    """(..., N1, 8) x (..., N2, 8) int32 -> (..., N1, N2) int32,
+    popcount(a XOR b); leading axes broadcast."""
+    x = popcount32(d1[..., :, None, :] ^ d2[..., None, :, :])
     return x.sum(dim=-1).to(torch.int32)

@@ -174,8 +174,14 @@ def _merge_components(sp, ep, d, mass, valid, cfg: LineDetectorConfig) -> Segmen
     droot = _take(d, root)
     sign = torch.sign(torch.einsum("bnd,bnd->bn", d, droot) + 1e-12)
     dal = d * sign[..., None] * mass[..., None]
-    dsum = torch.zeros((B, N, 2), dtype=dt, device=dev).scatter_add_(
-        1, root[..., None].expand(-1, -1, 2), torch.where(valid[..., None], dal, 0.0))
+    # per-component sums as masked (B, N, N) row sums: a fixed order on
+    # every device, where scatter_add_ on CUDA adds in atomics' order
+    member = root[:, None, :] == idx[:, :, None]          # [b, i, j]: j in component i
+
+    def component_sum(v):                                 # (B, N) -> (B, N)
+        return torch.where(member, torch.where(valid, v, 0.0)[:, None, :], 0.0).sum(-1)
+
+    dsum = torch.stack([component_sum(dal[..., 0]), component_sum(dal[..., 1])], dim=-1)
     dnorm = torch.linalg.norm(dsum, dim=-1, keepdim=True)
     dmean = dsum / torch.clamp(dnorm, min=1e-9)
 
@@ -190,8 +196,7 @@ def _merge_components(sp, ep, d, mass, valid, cfg: LineDetectorConfig) -> Segmen
         1, root, torch.where(valid, lo, big), reduce="amin", include_self=True)
     tmax = torch.full((B, N), -big, dtype=dt, device=dev).scatter_reduce_(
         1, root, torch.where(valid, hi, -big), reduce="amax", include_self=True)
-    msum = torch.zeros((B, N), dtype=dt, device=dev).scatter_add_(
-        1, root, torch.where(valid, mass, 0.0))
+    msum = component_sum(mass)
 
     sp_m = anchor + tmin[..., None] * dmean
     ep_m = anchor + tmax[..., None] * dmean

@@ -4,7 +4,9 @@
 Grid-window lookups of the reference (``src2/matching.cpp``) become
 geometric candidate masks over the full distance matrix; invalid pairs get
 a +BIG distance and never match.  The distance matrix comes from the
-Hamming kernel (``cuda_hamming``) on CUDA tensors.
+Hamming kernel (``cuda_hamming``) on CUDA tensors.  Every function here
+also runs under ``torch.func.vmap`` over a leading stream axis (the
+batched VO), with no per-example fallback.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from typing import NamedTuple
 
 import torch
 
-from .cuda_hamming import hamming_distance_matrix_cuda
+from .cuda_hamming import hamming_distance_matrix
 
 BIG = 1 << 20
 
@@ -100,7 +102,7 @@ def line_pair_mask(sp1, ep1, sp2, ep2, valid_1, valid_2, radius: float,
 def match_descriptors(desc1, desc2, pair_mask, nnr: float,
                       mutual: bool = True) -> MatchResult:
     """Hamming distance matrix (kernel on CUDA) + mutual NNR."""
-    dist = hamming_distance_matrix_cuda(desc1.contiguous(), desc2.contiguous())
+    dist = hamming_distance_matrix(desc1.contiguous(), desc2.contiguous())
     return match_mutual_nnr(dist, pair_mask, nnr, mutual)
 
 

@@ -118,13 +118,9 @@ class VisualOdometry:
 
     def _extract(self, imgs: torch.Tensor, fast_th) -> StereoFeatures:
         """Detect, describe and stereo-match one stacked (2, H, W) pair."""
-        kp, pdesc = _detect_describe_points_batch(imgs, self.fcfg, fast_th)
-        seg, ldesc = _detect_describe_lines_batch(imgs, self.fcfg)
-        points = _match_stereo_points(_take(kp, 0), pdesc[0], _take(kp, 1),
-                                      pdesc[1], self.cam, self.fcfg)
-        line_set = _match_stereo_lines(_take(seg, 0), ldesc[0], _take(seg, 1),
-                                       ldesc[1], self.cam, self.fcfg)
-        return StereoFeatures(points=points, lines=line_set)
+        kp_pair = _detect_describe_points_batch(imgs, self.fcfg, fast_th)
+        seg_pair = _detect_describe_lines_batch(imgs, self.fcfg)
+        return match_stereo(kp_pair, seg_pair, cam=self.cam, fcfg=self.fcfg)
 
     def initialize(self, img_l: torch.Tensor, img_r: torch.Tensor) -> StereoFeatures:
         feats = self._extract(self._stack(img_l, img_r), self.fcfg.fast_th)
@@ -166,16 +162,25 @@ def step(imgs: torch.Tensor, state: VOState, cam: StereoCamera,
     return match_and_track((kp, pdesc), (seg, ldesc), state, cam, fcfg, tcfg, prm)
 
 
-def match_and_track(kp_pair, seg_pair, state: VOState, cam: StereoCamera,
-                    fcfg: FrontendConfig, tcfg: TrackerConfig, prm: VOParams):
-    """The step after detection (``plslam_tpu.vo._match_and_track``)."""
+def match_stereo(kp_pair, seg_pair, *, cam: StereoCamera,
+                 fcfg: FrontendConfig) -> StereoFeatures:
+    """Left-right matching of one pair's detections (index 0 left, 1
+    right on the leading axis)."""
     kp, pdesc = kp_pair
     seg, ldesc = seg_pair
     points = _match_stereo_points(_take(kp, 0), pdesc[0], _take(kp, 1), pdesc[1],
                                   cam, fcfg)
     line_set = _match_stereo_lines(_take(seg, 0), ldesc[0], _take(seg, 1), ldesc[1],
                                    cam, fcfg)
-    feats = StereoFeatures(points=points, lines=line_set)
+    return StereoFeatures(points=points, lines=line_set)
+
+
+def match_and_track(kp_pair, seg_pair, state: VOState, cam: StereoCamera,
+                    fcfg: FrontendConfig, tcfg: TrackerConfig, prm: VOParams):
+    """The step after detection (``plslam_tpu.vo._match_and_track``).  It
+    also runs under ``torch.func.vmap`` over a leading stream axis
+    (``batch_vo``): no host sync, no data-dependent Python branch."""
+    feats = match_stereo(kp_pair, seg_pair, cam=cam, fcfg=fcfg)
 
     pts, ls, _, _ = f2f.track_frame_to_frame(state.features, feats)
     I4 = torch.eye(4, dtype=state.T_f_w.dtype, device=state.T_f_w.device)

@@ -163,3 +163,45 @@ def test_disk_phase_on_the_cpu(tmp_path, monkeypatch):
     assert set(by_thread) == set(chip_smoke._wrappers())
     with open(os.path.join(fixture, "residuals.jsonl")) as f:
         assert len(f.readlines()) == 2
+
+
+def test_render_depth_matches_fixture():
+    """Phase 10's numpy copy of tests/test_rgbd.render_depth."""
+    from plslam_tpu.io.synthetic import SyntheticScene as JScene
+    from test_rgbd import render_depth
+
+    scene = JScene(seed=13)
+    T = np.eye(4)
+    T[:3, 3] = (0.02, -0.01, 0.1)
+    np.testing.assert_array_equal(chip_smoke.render_depth(scene, T), render_depth(scene, T))
+
+
+def test_batch_phase_on_the_cpu(monkeypatch):
+    """Phase 10 rehearsed on the CPU at 376x240 (2 streams, 512 points,
+    128 line slots, 1 + 1 + 2 frames, B in 1 and 2, the ATE floors at
+    B = 2 against generous stand-ins): the worker-process render, the
+    sweep, the single-stream agreement and the RGB-D track; not the
+    kernels' launch counts, the device timers or the card."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "chip_smoke", chip_smoke)   # the workers import it
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", lambda *a, **k: None)
+    monkeypatch.setattr(chip_smoke, "KERNEL_WRAPPERS", ())
+    monkeypatch.setattr(chip_smoke, "BATCH_SIZES", (1, 2))
+    monkeypatch.setattr(chip_smoke, "BATCH_WARMUP", 1)
+    monkeypatch.setattr(chip_smoke, "BATCH_FRAMES", 2)
+    monkeypatch.setattr(chip_smoke, "BATCH_SCENE", dict(n_points=300, n_lines=40, width=376,
+                                                       height=240, fx=217.6, fy=217.6,
+                                                       cx=183.7, cy=126.1))
+    monkeypatch.setattr(chip_smoke, "BATCH_WIDTHS", dict(n_points=512, n_lines=128))
+    monkeypatch.setattr(chip_smoke, "BATCH_ATE_B", 2)
+    monkeypatch.setattr(chip_smoke, "JAX_CPU_BATCH_ATE", (0.05, 0.05))
+    monkeypatch.setattr(chip_smoke, "RENDER_WORKERS", 2)
+    streams = chip_smoke.wait_batch_render(chip_smoke.start_batch_render())
+    assert len(streams) == 2 and streams[0].shape == (4, 2, 240, 376)
+    launches, rows, ates = chip_smoke.phase_batch(torch.device("cpu"), "CPU", streams)
+    assert set(launches) == set(chip_smoke._wrappers()) and set(rows) == {1, 2}
+    assert rows[2]["good"] == rows[2]["frames"] == 6 and len(ates) == 2
+    launches, err = chip_smoke.phase_rgbd(torch.device("cpu"), "CPU")
+    assert err < 0.02 and not any(launches.values())

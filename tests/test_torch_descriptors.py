@@ -78,3 +78,32 @@ def test_tables_equal_jax_constants():
     for n_out, n_in in ((400, 480), (522, 752), (100, 120)):
         np.testing.assert_array_equal(image._resize_matrix(n_out, n_in),
                                       jimage._resize_matrix(n_out, n_in))
+
+
+@pytest.mark.parametrize("B,n1,n2", [(1, 5, 7), (3, 37, 300), (4, 0, 9), (2, 64, 1)])
+def test_batched_hamming_operator_on_the_cpu(B, n1, n2):
+    """The batched call, and a 2-D call under torch.func.vmap (one batched
+    call through the operator's vmap rule), equal the plain matrix of
+    each stream; an unbatched operand is shared by every stream."""
+    import torch
+
+    rng = np.random.default_rng(B * 100 + n1)
+    d1 = t(np.stack([_desc(rng, n1) for _ in range(B)]))
+    d2 = t(np.stack([_desc(rng, n2) for _ in range(B)]))
+    want = torch.stack([descriptors.hamming_distance_matrix(a, b) for a, b in zip(d1, d2)])
+    assert torch.equal(cuda_hamming.hamming_distance_matrix_cuda(d1, d2), want)
+    op = cuda_hamming.hamming_distance_matrix
+    assert torch.equal(torch.func.vmap(op)(d1, d2), want)
+    shared = torch.func.vmap(op, in_dims=(0, None))(d1, d2[0])
+    assert torch.equal(shared, torch.stack([descriptors.hamming_distance_matrix(a, d2[0])
+                                            for a in d1]))
+
+
+def test_batched_hamming_rejects_mismatched_streams():
+    import torch
+
+    d = torch.zeros((2, 4, 8), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        cuda_hamming.hamming_distance_matrix_cuda(d, torch.zeros((3, 4, 8), dtype=torch.int32))
+    with pytest.raises(ValueError):
+        cuda_hamming.hamming_distance_matrix_cuda(d, d[0])

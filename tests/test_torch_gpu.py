@@ -190,3 +190,61 @@ def test_remap_on_the_card(dev, tmp_path):
         il, ir = nl.get(0)
     assert il.device == dev and il.dtype == torch.float32
     assert (torch.stack([il, ir]).cpu() - want).abs().max().item() <= 1e-3
+
+
+@pytest.mark.parametrize("B,n1,n2", [(1, 1200, 1200), (3, 37, 300), (3, 256, 255),
+                                     (16, 1200, 1200), (16, 100, 7), (16, 1, 64)])
+def test_batched_hamming_kernel(dev, B, n1, n2):
+    """B matrices in one launch against the plain twin of each stream;
+    also an operand at batch stride 0 (shared by every stream) and one at
+    a wider stride (every other stream of a stack)."""
+    g = torch.Generator().manual_seed(B * 1000 + n1 + n2)
+    d1 = torch.randint(-2**31, 2**31, (B, n1, 8), generator=g).to(torch.int32).to(dev)
+    d2 = torch.randint(-2**31, 2**31, (2 * B, n2, 8), generator=g).to(torch.int32).to(dev)
+    d1[:, : n1 // 3] = -1
+    wide = d2[::2]
+    n = cuda_hamming.hamming_distance_matrix_cuda.launches
+    got = cuda_hamming.hamming_distance_matrix_cuda(d1, wide)
+    assert cuda_hamming.hamming_distance_matrix_cuda.launches == n + 1
+    assert got.shape == (B, n1, n2)
+    assert torch.equal(got, cuda_hamming.hamming_plain(d1, wide))
+    shared = d2[0].expand(B, n2, 8)
+    assert torch.equal(cuda_hamming.hamming_distance_matrix_cuda(d1, shared),
+                       cuda_hamming.hamming_plain(d1, shared))
+    # the operator's vmap rule: one launch for the vmapped 2-D call
+    n = cuda_hamming.hamming_distance_matrix_cuda.launches
+    got = torch.func.vmap(cuda_hamming.hamming_distance_matrix)(d1, wide.contiguous())
+    assert cuda_hamming.hamming_distance_matrix_cuda.launches == n + 1
+    assert torch.equal(got, cuda_hamming.hamming_plain(d1, wide))
+
+
+def test_batched_vo_launches_per_frame(dev):
+    """A batched frame launches each kernel as often as a one-stream frame:
+    4 FAST, 2 patch gathers, 4 Hamming, at B = 1 and B = 3."""
+    import numpy as np
+
+    from plslam_tpu_torch.batch_vo import BatchedVisualOdometry
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.frontend.frame import FrontendConfig
+    from plslam_tpu_torch.io import SyntheticScene, circular_trajectory
+
+    poses = circular_trajectory(3)
+    wrappers = (cuda_fast.fast_score_nms_batch, cuda_patches.gather_patches_batch,
+                cuda_hamming.hamming_distance_matrix_cuda)
+    for B in (1, 3):
+        scenes = [SyntheticScene(seed=s) for s in range(B)]
+        fr = [[torch.from_numpy(np.stack(x)).to(dev) for x in zip(*(sc.render_stereo(T)
+                                                                    for sc in scenes))]
+              for T in poses]
+        sc = scenes[0]
+        cam = StereoCamera.create(sc.fx, sc.fy, sc.cx, sc.cy, sc.b, width=sc.width,
+                                  height=sc.height)
+        bvo = BatchedVisualOdometry(B, cam, FrontendConfig(n_points=512, n_lines=128,
+                                                           fast_th=15.0), device=dev)
+        bvo.initialize(*fr[0])
+        bvo.process(*fr[1])
+        before = [fn.launches for fn in wrappers]
+        res = bvo.process(*fr[2])
+        torch.cuda.synchronize()
+        assert [fn.launches - b for fn, b in zip(wrappers, before)] == [4, 2, 4]
+        assert res.T_f_w.shape == (B, 4, 4) and bool(res.good.all())

@@ -13,6 +13,7 @@ import sys
 import pytest
 import torch
 
+from plslam_tpu_torch.batch_vo import BatchedVisualOdometry
 from plslam_tpu_torch.core.camera import StereoCamera
 from plslam_tpu_torch.pipeline import PLSLAM
 from plslam_tpu_torch.vo import VisualOdometry
@@ -39,11 +40,13 @@ def test_port_imports_no_jax_package():
     res = json.loads(out.strip().splitlines()[-1])
     assert res["bad"] == []
     for mod in ("plslam_tpu_torch.config", "plslam_tpu_torch.pipeline",
-                "plslam_tpu_torch.io.synthetic", "plslam_tpu_torch.ops.cuda_patches"):
+                "plslam_tpu_torch.io.synthetic", "plslam_tpu_torch.ops.cuda_patches",
+                "plslam_tpu_torch.batch_vo", "plslam_tpu_torch.frontend.rgbd",
+                "plslam_tpu_torch.core.segment"):
         assert mod in res["modules"]
 
 
-@pytest.mark.parametrize("entry", [VisualOdometry, PLSLAM])
+@pytest.mark.parametrize("entry", [VisualOdometry, PLSLAM, BatchedVisualOdometry])
 def test_entry_points_default_to_the_card(entry):
     assert inspect.signature(entry).parameters["device"].default == "cuda"
 
