@@ -57,7 +57,23 @@ Phases, each reported on its own lines:
      vmap fallback; at B = 4 each stream's ATE under max(2x the JAX
      package's CPU value, 0.01 m); at B = 2 each stream against
      single-stream ``VisualOdometry``; then tests/test_rgbd.py's two-frame
-     RGB-D track (error under 0.02 m, the FAST and patch kernels launched).
+     RGB-D track (error under 0.02 m, the FAST and patch kernels launched);
+ 11. distribution: a process group of one rank (NCCL, a FileStore in a
+     temporary directory), a 1-D and a (1, 1) ("dcn", "ici") mesh, and the
+     JAX package's multichip dry run at its sizes: landmark-sharded BA
+     (K=32, P=4096, L=512, 6-keyframe windows, 2 trips; 1-axis and 2-axis)
+     against ``lm_rounds``, the sharded matcher (Q=1280, all rows valid and
+     5% masked) equal to the single-device matcher, the edge-sharded PGO
+     (256 poses, 5 iterations) against ``pgo.optimize``, the kf-block GBA
+     (1-axis and 2-axis) on the 32-keyframe ring map bit-identical to the
+     chunked GBA run in this process on the same partition, and against
+     the single-device GBA (both errors fall, points within
+     max(1.5x, 0.01 m)); the chunked GBA at 2 and 4 chunks in float32 and
+     float64 (f64 must not move with the split); and
+     ``BatchedVisualOdometry(4, sharding=)`` on phase 10's first 4 streams
+     bit-identical to the unsharded batch, 4 / 2 / 4 launches per frame.
+     tests/test_torch_gpu_dist.py runs this phase over every card of a
+     machine with more than one, one NCCL rank each.
 Phase 4 also runs the VO twice over its frames and phase 6 ``lm_rounds``
 six times on one problem: both must repeat bit for bit.  Phase 3 also
 times the batched Hamming launch at (B, 1200, 8)^2 and (B, 256, 8)^2.
@@ -153,6 +169,19 @@ BATCH_LAUNCHES = {"fast_score_nms_batch": 4, "gather_patches_batch": 2,
 RENDER_WORKERS = 8
 # tests/test_rgbd.py's two-frame RGB-D scenario
 RGBD_XI = (0.02, -0.01, 0.1, 0.005, -0.008, 0.01)
+
+# Phase 11: the JAX package's multichip dry run (__graft_entry__.py
+# dryrun_multichip) at its sizes: landmark-sharded BA (K poses, P points, L
+# lines, each seen from an obs_k-keyframe window; `iters` LM trips), the
+# sharded matcher (q queries; a variant with `masked` of the rows masked),
+# the edge-sharded PGO (pgo_k poses, pgo_iters trips), the kf-block GBA on
+# the ring map, then BatchedVisualOdometry(b, sharding=) on phase 10's first
+# b streams over `frames` frames.  World 1 here; tests/test_torch_gpu_dist.py
+# runs the phase over every card of the machine.
+DIST = dict(ba=dict(K=32, P=4096, L=512, obs_k=6), iters=2, q=1280, masked=0.05, pgo_k=256,
+            pgo_iters=5, ring=dict(rng_seed=3, n_kf=32, n_pts=4096, n_ls=512, pose_noise=0.01,
+                                   lm_noise=0.03),
+            b=4, frames=4, scene=BATCH_SCENE, widths=BATCH_WIDTHS)
 
 # Phase 3's timing.  Device time: TIMED_LAUNCHES back-to-back calls,
 # captured once in a CUDA graph and replayed between two CUDA events.
@@ -1474,6 +1503,380 @@ def phase_rgbd(dev, smi):
     return launches, err
 
 
+def make_dist_ba_problem(dev, rng, K, P, L, obs_k):
+    """The dry run's landmark-sharded BA problem (float32), built with the
+    same draws in the same order; landmark indices global, observations
+    landmark-major (a contiguous block of landmarks owns a contiguous block
+    of observations)."""
+    from plslam_tpu_torch.backend import ba
+    from plslam_tpu_torch.core import lie
+    from plslam_tpu_torch.core.plucker import plucker_from_two_points, plucker_to_orth
+
+    fx = fy = 435.2
+    cx, cy = 367.4, 252.2
+    f32 = np.float32
+    xi = np.concatenate([rng.uniform(-0.3, 0.3, (K, 3)), rng.uniform(-0.05, 0.05, (K, 3))], 1)
+    T_c_w = np.linalg.inv(lie.exp_se3(torch.from_numpy(xi).float()).numpy()).astype(f32)
+    Pw = np.stack([rng.uniform(-3, 3, P), rng.uniform(-2, 2, P), rng.uniform(4, 10, P)],
+                  -1).astype(f32)
+    LA = np.stack([rng.uniform(-3, 3, L), rng.uniform(-2, 2, L), rng.uniform(4, 10, L)],
+                  -1).astype(f32)
+    LB = (LA + np.stack([rng.uniform(-1.5, 1.5, L), rng.uniform(-1.5, 1.5, L),
+                         rng.uniform(-0.5, 0.5, L)], -1)).astype(f32)
+
+    def proj(cams, X):
+        Xc = np.einsum("nij,nj->ni", T_c_w[cams, :3, :3], X) + T_c_w[cams, :3, 3]
+        return np.stack([cx + fx * Xc[:, 0] / Xc[:, 2], cy + fy * Xc[:, 1] / Xc[:, 2]],
+                        -1).astype(f32)
+
+    p_cam = (rng.integers(0, K - obs_k + 1, P)[:, None] + np.arange(obs_k)[None]).reshape(-1)
+    p_lm = np.repeat(np.arange(P), obs_k)
+    l_cam = (rng.integers(0, K - obs_k + 1, L)[:, None] + np.arange(obs_k)[None]).reshape(-1)
+    l_lm = np.repeat(np.arange(L), obs_k)
+    Lw = plucker_from_two_points(torch.from_numpy(LA), torch.from_numpy(LB))
+    scale = torch.linalg.norm(Lw, dim=-1)
+    orth = plucker_to_orth(Lw / scale[:, None])
+    pert = rng.normal(size=(K, 6)).astype(f32) * 0.02
+    pert[0] = 0
+    T_init = lie.exp_se3(torch.from_numpy(pert)) @ torch.from_numpy(T_c_w)
+    pts = Pw + rng.normal(size=Pw.shape).astype(f32) * 0.02
+    t = lambda a: torch.as_tensor(a).to(dev)  # noqa: E731
+    ones = lambda n: torch.ones(n, dtype=torch.bool, device=dev)  # noqa: E731
+    return ba.BAProblem(
+        T_c_w=t(T_init), pose_fixed=t(np.arange(K) == 0), pose_valid=ones(K), points=t(pts),
+        point_valid=ones(P), lines_orth=t(orth), lines_scale=t(scale), line_valid=ones(L),
+        p_cam=t(p_cam), p_lm=t(p_lm), p_uv=t(proj(p_cam, Pw[p_lm])),
+        p_sigma2=torch.ones(len(p_cam), device=dev), p_valid=ones(len(p_cam)),
+        l_cam=t(l_cam), l_lm=t(l_lm), l_sobs=t(proj(l_cam, LA[l_lm])),
+        l_eobs=t(proj(l_cam, LB[l_lm])), l_sigma2=torch.ones(len(l_cam), device=dev),
+        l_valid=ones(len(l_cam)))
+
+
+def make_dist_pose_graph(dev, rng, K, n_shards):
+    """The dry run's pose graph (odometry chain, skip edges every 3 poses,
+    one loop edge; noisy starts) in float64, as the port's PGO runs, its
+    edges padded with invalid rows to a multiple of ``n_shards``."""
+    from plslam_tpu_torch.backend.pgo import PoseGraph
+    from plslam_tpu_torch.core import lie
+
+    xi = rng.normal(size=(K, 6)).astype(np.float32) * 0.05
+    xi[0] = 0
+    T_gt = lie.exp_se3(torch.from_numpy(np.cumsum(xi, 0).astype(np.float64)))
+    cov = np.arange(0, K - 5, 3)
+    e_i = np.concatenate([np.arange(K - 1), cov, [0]])
+    e_j = np.concatenate([np.arange(1, K), cov + 5, [K - 1]])
+    e_T = torch.linalg.inv(T_gt[e_i]) @ T_gt[e_j]
+    noise = rng.normal(size=(K, 6)).astype(np.float32) * 0.03 * (np.arange(K) > 0)[:, None]
+    noisy = lie.exp_se3(torch.from_numpy(noise.astype(np.float64))) @ T_gt
+    E, pad = len(e_i), -len(e_i) % n_shards
+    f64 = torch.float64
+    return PoseGraph(T_w_k=noisy.to(dev), fixed=(torch.arange(K) == 0).to(dev),
+                     valid=torch.ones(K, dtype=torch.bool, device=dev),
+                     e_i=torch.from_numpy(np.pad(e_i, (0, pad))).to(dev),
+                     e_j=torch.from_numpy(np.pad(e_j, (0, pad))).to(dev),
+                     e_T=torch.cat([e_T, torch.eye(4, dtype=f64).expand(pad, 4, 4)]).to(dev),
+                     e_info=torch.ones(E + pad, dtype=f64, device=dev),
+                     e_valid=(torch.arange(E + pad) < E).to(dev))
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _timed(dev, fn, warm=False):
+    """(result, host ms) of fn between two device synchronizations; with
+    ``warm``, after one untimed call (first-call costs: cuSOLVER, NCCL)."""
+    if warm:
+        fn()
+    _sync(dev)
+    t = time.perf_counter()
+    out = fn()
+    _sync(dev)
+    return out, 1e3 * (time.perf_counter() - t)
+
+
+def _ring_errors(mapper, truth):
+    """(mean keyframe position error, median point error) against the ring
+    map's truth, as the dry run measures them."""
+    T_true, pt_true = truth
+    mp = mapper.map
+    T = np.stack([k.T_w_k[:3, 3] for k in mp.keyframes])
+    el = np.where(mp.pt_valid & (mp.pt_nobs >= 2))[0]
+    return (float(np.linalg.norm(T - T_true[:, :3, 3], axis=1).mean()),
+            float(np.median(np.linalg.norm(mp.pt_w[el] - pt_true[el], axis=1))))
+
+
+def _same_map(a, b) -> bool:
+    """Whether two mappers hold the same poses, landmarks and observation
+    masks, bit for bit."""
+    ma, mb = a.map, b.map
+    poses = [np.stack([k.T_w_k for k in m.keyframes]) for m in (ma, mb)]
+    pairs = [poses, (ma.pt_w, mb.pt_w), (ma.ls_w, mb.ls_w), (ma.ls_epw, mb.ls_epw),
+             (ma.pobs.valid[: ma.pobs.n], mb.pobs.valid[: mb.pobs.n]),
+             (ma.lobs.valid[: ma.lobs.n], mb.lobs.valid[: mb.lobs.n])]
+    return all(np.array_equal(x, y) for x, y in pairs)
+
+
+def run_dist(dev, smi, streams, cfg):
+    """Every distributed program of the JAX package's multichip dry run at
+    ``cfg``'s sizes on the initialized process group (this rank's card is
+    ``dev``), each against its single-device form on this rank: a 1-D mesh
+    and a 2-axis ("dcn", "ici") one ((2, n / 2) when the world n is even,
+    else (1, n)), landmark-sharded BA, the sharded matcher, the
+    edge-sharded PGO, the kf-block GBA, and ``BatchedVisualOdometry(b,
+    sharding=)`` against the unsharded batch: bit for bit at world 1,
+    otherwise within phase 10's batched-vs-single bars (rank 0 checks).
+    Returns this rank's kernel launches (sharded matcher and batched VO),
+    the programs' times (ms) and the report lines, each printed too.
+    Launch counts are checked on the card only: CPU tensors never reach a
+    kernel."""
+    import torch.distributed as dist
+
+    from plslam_tpu_torch.backend import ba, pgo
+    from plslam_tpu_torch.batch_vo import BatchedVisualOdometry
+    from plslam_tpu_torch.convert import ba_problem_from_numpy
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.frontend.frame import FrontendConfig
+    from plslam_tpu_torch.frontend.tracker import TrackerConfig
+    from plslam_tpu_torch.io import SyntheticScene
+    from plslam_tpu_torch.io.ring_map import build_ring_map
+    from plslam_tpu_torch.ops import matching as M
+    from plslam_tpu_torch.ops.cuda_hamming import hamming_distance_matrix
+    from plslam_tpu_torch.parallel import dist_ba, dist_gba, dist_match, multihost
+    from plslam_tpu_torch.parallel.mesh import allgather, make_mesh, shard_leading
+
+    lines = []
+
+    def note(msg):
+        say(msg)
+        lines.append(msg)
+
+    t_phase = time.perf_counter()
+    n, rank = dist.get_world_size(), dist.get_rank()
+    mesh = make_mesh("lm", dev.type)
+    mesh2 = multihost.make_multihost_mesh(*((2, n // 2) if n % 2 == 0 else (1, n)),
+                                          device_type=dev.type)
+    note(f"dist: process group {dist.get_backend()} world {n}, meshes {tuple(mesh.shape)} "
+         f"and {tuple(mesh2.shape)} {mesh2.mesh_dim_names} up in "
+         f"{time.perf_counter() - t_phase:.3f} s on {smi}")
+    wrappers = _wrappers()
+    kernels = KERNEL_WRAPPERS if dev.type == "cuda" else ()
+    rng = np.random.default_rng(0)
+    ms = {}
+
+    # landmark-sharded BA against lm_rounds on the unsharded problem
+    sz = cfg["ba"]
+    prob = make_dist_ba_problem(dev, rng, **sz)
+    local = prob._replace(p_lm=prob.p_lm % (sz["P"] // n), l_lm=prob.l_lm % (sz["L"] // n))
+    cam = StereoCamera.create(435.2, 435.2, 367.4, 252.2, 0.110074)
+    run = dist_ba.make_dist_bundle_adjust(mesh, cam, ba.BAConfig(), cfg["iters"])
+    (out, cost), ms["dist_ba"] = _timed(dev, lambda: run(dist_ba.shard_problem(mesh, local)),
+                                        warm=True)
+    (ref, ref_cost, _), ms["single_ba"] = _timed(dev, lambda: ba.lm_rounds(
+        prob, cam, ba.BAConfig(early_exit=False), prob.p_valid, prob.l_valid, cfg["iters"]),
+        warm=True)
+    run2 = multihost.make_dist_bundle_adjust_2d(mesh2, cam, ba.BAConfig(), cfg["iters"])
+    (out2, cost2), ms["dist_ba_2d"] = _timed(
+        dev, lambda: run2(multihost.shard_problem_2d(mesh2, local)), warm=True)
+    dT = max(float((o.T_c_w - ref.T_c_w).abs().max()) for o in (out, out2))
+    dc = max(abs(float(c) - float(ref_cost)) for c in (cost, cost2)) / max(
+        abs(float(ref_cost)), 1.0)
+    note(f"dist BA K={sz['K']} P={sz['P']} L={sz['L']} obs {int(prob.p_valid.sum())}+"
+         f"{int(prob.l_valid.sum())}, {cfg['iters']} trips: cost {float(cost):.6g} (single "
+         f"{float(ref_cost):.6g}); against the single-device solve dT={dT:.3g} dcost={dc:.3g} "
+         f"(dry run's bars 5e-3, 1e-3); 1-axis {ms['dist_ba']:.3f} ms, 2-axis "
+         f"{ms['dist_ba_2d']:.3f} ms, single {ms['single_ba']:.3f} ms")
+    if not (np.isfinite(float(cost)) and dT < 5e-3 and dc < 1e-3):
+        raise AssertionError(f"dist BA departs from the single-device solve: dT {dT}, dcost {dc}")
+
+    # the sharded matcher, all rows valid and with masked rows, against the
+    # single-device matcher
+    Q = cfg["q"]
+    desc_q = rng.integers(0, 2**32, (Q, 8), dtype=np.uint64).astype(np.uint32)
+    desc_t = np.concatenate([desc_q[: Q // 2], rng.integers(
+        0, 2**32, (Q - Q // 2, 8), dtype=np.uint64).astype(np.uint32)])
+    masks = [(np.ones(Q, bool), np.ones(Q, bool)),
+             (rng.random(Q) >= cfg["masked"], rng.random(Q) >= cfg["masked"])]
+    dq = torch.from_numpy(desc_q.view(np.int32)).to(dev)
+    dt = torch.from_numpy(desc_t.view(np.int32)).to(dev)
+    vs = [(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev)) for a, b in masks]
+    matcher = dist_match.make_dist_matcher(mesh)
+
+    def match_all():
+        return [matcher(shard_leading(dq, mesh), shard_leading(vq, mesh), dt, vt)
+                for vq, vt in vs]
+
+    match_all()     # untimed first call, outside the counts
+    for fn in wrappers.values():
+        fn.launches = 0
+    got, ms["dist_match"] = _timed(dev, match_all)
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    for (vq, vt), g, name in zip(vs, got, ("all rows valid", "masked rows")):
+        want = M.match_mutual_nnr(hamming_distance_matrix(dq, dt), vq[:, None] & vt[None, :], 0.9)
+        idx, dd = allgather(g.idx, mesh), allgather(g.dist, mesh)
+        same = torch.equal(idx, want.idx) and torch.equal(dd, want.dist)
+        note(f"dist matcher Q={Q} ({name}): {int((idx >= 0).sum())} matches, equal to the "
+             f"single-device matcher: {same}")
+        if not same or int((idx >= 0).sum()) < Q // 4:
+            raise AssertionError(f"sharded matcher ({name}) != single-device matcher")
+    note(f"dist matcher: {ms['dist_match'] / len(vs):.3f} ms per call; launches {launches}")
+    if launches["hamming_distance_matrix_cuda"] != len(vs) and kernels:
+        raise AssertionError(f"sharded matcher launched Hamming {launches}")
+
+    # the edge-sharded PGO against pgo.optimize
+    g = make_dist_pose_graph(dev, rng, cfg["pgo_k"], n)
+    pgo_run = dist_match.make_dist_pgo(mesh, iters=cfg["pgo_iters"])
+    g_out, ms["dist_pgo"] = _timed(
+        dev, lambda: pgo_run(dist_match.shard_posegraph(mesh, g)), warm=True)
+    g_ref, ms["single_pgo"] = _timed(dev, lambda: pgo.optimize(g, cfg["pgo_iters"]), warm=True)
+    dP = float((g_out.T_w_k - g_ref.T_w_k).abs().max())
+    note(f"dist PGO K={cfg['pgo_k']} E={int(g.e_valid.sum())}, {cfg['pgo_iters']} iterations: "
+         f"dP={dP:.3g} (bar 5e-3); {ms['dist_pgo']:.3f} ms, single {ms['single_pgo']:.3f} ms")
+    if not dP < 5e-3:
+        raise AssertionError(f"dist PGO departs from pgo.optimize: {dP}")
+
+    # the chunked GBA in this process on the ring map: at 1 and 4 blocks of
+    # chunks in float32 and float64 (rank 0; no collectives), then on the
+    # ranks' partition, written back: the reference of the kf-block GBA
+    def chunked(mapper, n_blocks, dtype=torch.float32):
+        blk = dist_gba.partition_map(mapper, n_blocks)
+        prob = ba_problem_from_numpy(blk.prob, dev)
+        prob = prob._replace(**{f: v.to(dtype) for f, v in prob._asdict().items()
+                                if v is not None and v.is_floating_point()})
+        return blk, ba.bundle_adjust_chunked(prob, mapper.cam, mapper.ba_cfg)
+
+    ref, truth = build_ring_map(**cfg["ring"], device=dev)
+    if rank == 0:
+        split = {}
+        for n_blocks in (1, 4):
+            for dtype in (torch.float32, torch.float64):
+                (blk, res), t = _timed(dev, lambda: chunked(ref, n_blocks, dtype))
+                Ng = len(blk.pt_ids_glob)
+                own = blk.own_pt & (blk.pt_gid >= 0) & (blk.pt_gid < Ng)
+                pts = np.zeros((Ng, 3))
+                pts[blk.pt_gid[own]] = res.problem.points.double().cpu().numpy()[own]
+                split[n_blocks, dtype] = (len(blk.metas), res.problem.T_c_w.double().cpu()
+                                          .numpy(), pts, float(res.cost), t)
+        spread = {}
+        for dtype in (torch.float32, torch.float64):
+            (c1, T1, x1, cost1, t1), (c4, T4, x4, cost4, t4) = split[1, dtype], split[4, dtype]
+            spread[dtype] = (float(np.abs(T1 - T4).max()), float(np.abs(x1 - x4).max()))
+            note(f"chunked GBA {str(dtype)[6:]}: {c1} chunks cost {cost1:.6g} ({t1:.3f} ms), "
+                 f"{c4} chunks cost {cost4:.6g} ({t4:.3f} ms); {c1} vs {c4} chunks: max |dT| "
+                 f"{spread[dtype][0]:.3g}, max |dpoint| {spread[dtype][1]:.3g} m")
+        if not max(spread[torch.float64]) < 1e-6:
+            raise AssertionError(f"the f64 chunked GBA moves with its chunk split: {spread}")
+    ref_blk, ref_res = chunked(ref, n)
+    rp = ref_res.problem
+    dist_gba.write_back(ref, ref_blk, (rp.T_c_w, rp.points, rp.lines_orth, rp.lines_scale,
+                                       ref_res.p_active, ref_res.l_active))
+
+    # the kf-block GBA, 1-axis and 2-axis: bit for bit the chunked GBA on the
+    # same partition; against the single-device GBA (other chunks) the dry
+    # run's bars
+    mapper_b, _ = build_ring_map(**cfg["ring"], device=dev)
+    pre_p, pre_x = _ring_errors(mapper_b, truth)
+    _, ms["single_gba"] = _timed(dev, mapper_b.global_bundle_adjustment)
+    single_p, single_x = _ring_errors(mapper_b, truth)
+    for name, axes_mesh in (("1-axis", make_mesh(dist_gba.AXIS, dev.type)), ("2-axis", mesh2)):
+        mapper, _ = build_ring_map(**cfg["ring"], device=dev)
+        blk, ms["dist_gba " + name] = _timed(
+            dev, lambda: dist_gba.distributed_global_bundle_adjustment(mapper, axes_mesh))
+        p, x = _ring_errors(mapper, truth)
+        same = _same_map(mapper, ref)
+        note(f"dist GBA {name} ({cfg['ring']['n_kf']} KF, {len(blk.pt_ids_glob)} points + "
+             f"{len(blk.ls_ids_glob)} lines in {len(blk.metas)} chunks): bit-identical to the "
+             f"chunked GBA on the same partition {same}; pose {pre_p:.6f} -> {p:.6f}, points "
+             f"{pre_x:.6f} -> {x:.6f} m; single-device {single_p:.6f}, {single_x:.6f}; "
+             f"{ms['dist_gba ' + name]:.3f} ms, single {ms['single_gba']:.3f} ms")
+        if not (same and p < pre_p and x < pre_x and x < max(1.5 * single_x, 0.01)
+                and np.isfinite(np.stack([k.T_w_k for k in mapper.map.keyframes])).all()):
+            raise AssertionError(f"dist GBA {name}: same {same}, pose {pre_p}->{p}, points "
+                                 f"{pre_x}->{x}, single {single_x}")
+
+    # BatchedVisualOdometry(sharding=) against the unsharded batch
+    B, F = cfg["b"], cfg["frames"]
+    sc = SyntheticScene(seed=0, **cfg["scene"])
+    bcam = StereoCamera.create(sc.fx, sc.fy, sc.cx, sc.cy, sc.b, width=sc.width,
+                               height=sc.height)
+    fcfg, tcfg = FrontendConfig(**cfg["widths"]), TrackerConfig()
+    L = [torch.from_numpy(np.ascontiguousarray(np.stack([st[i, 0] for st in streams[:B]])))
+         .to(dev) for i in range(F + 1)]
+    R = [torch.from_numpy(np.ascontiguousarray(np.stack([st[i, 1] for st in streams[:B]])))
+         .to(dev) for i in range(F + 1)]
+    seq = make_mesh("seq", dev.type)
+
+    def track(sharding):
+        """The gathered results, and the launches counted after initialize."""
+        bvo = BatchedVisualOdometry(B, bcam, fcfg, tcfg, device=dev, sharding=sharding)
+        bvo.initialize(L[0], R[0])
+        at_init = {k: fn.launches for k, fn in wrappers.items()}
+        return [bvo.gather_result(bvo.process(L[i], R[i])) for i in range(1, F + 1)], at_init
+
+    _sync(dev)
+    for fn in wrappers.values():
+        fn.launches = 0
+    (sharded, at_init), ms["dist_batch_vo"] = _timed(dev, lambda: track(seq))
+    bvo_launches = {k: fn.launches for k, fn in wrappers.items()}
+    # the unsharded batch on rank 0, then sharded again: the order's share of the times
+    plain = None
+    if rank == 0:
+        (plain, _), ms["batch_vo"] = _timed(dev, lambda: track(None))
+    (again, _), ms["dist_batch_vo again"] = _timed(dev, lambda: track(seq))
+    repeat = all(torch.equal(a, c) for rs, ra in zip(sharded, again) for a, c in zip(rs, ra))
+    good = torch.stack([r.good for r in sharded])
+    if plain is not None:
+        bitwise = all(torch.equal(a, b) for rs, rp in zip(sharded, plain) for a, b in zip(rs, rp))
+        dT = max(float((rs.T_f_w - rp.T_f_w).abs().max()) for rs, rp in zip(sharded, plain))
+        dn = max(int((rs.n_inliers - rp.n_inliers).abs().max()) for rs, rp in zip(sharded, plain))
+        good_eq = all(torch.equal(rs.good, rp.good) for rs, rp in zip(sharded, plain))
+        note(f"dist batch VO B={B} over {n} rank(s), {F} frames (+ init): against the unsharded "
+             f"batch bitwise {bitwise}, max |T_f_w diff| {dT:.3g}, max |inlier diff| {dn}, good "
+             f"equal {good_eq}; the two sharded runs bit-identical {repeat}; "
+             f"{int(good.sum())}/{good.numel()} stream-frames good; {ms['dist_batch_vo']:.3f} ms "
+             f"sharded, {ms['batch_vo']:.3f} ms unsharded, {ms['dist_batch_vo again']:.3f} ms "
+             f"sharded again; launches {bvo_launches}")
+        # one rank runs the unsharded step's program: bit for bit; more ranks
+        # run it at B / n streams, whose batched products round apart
+        if not (good_eq and (bitwise if n == 1 else dT <= 2e-2 and dn <= 6)):
+            raise AssertionError(f"sharded batch VO departs from the unsharded batch: bitwise "
+                                 f"{bitwise}, dT {dT}, inliers {dn}, good {good_eq}")
+    if not (repeat and bool(good.all())):
+        raise AssertionError(f"sharded batch VO: repeat {repeat}, good {good.tolist()}")
+    for k in kernels:
+        per_frame = (bvo_launches[k] - at_init[k]) / F
+        if per_frame != BATCH_LAUNCHES[k]:
+            raise AssertionError(f"sharded batch VO launched {k} {per_frame} times per frame, "
+                                 f"want {BATCH_LAUNCHES[k]}")
+    for k in launches:
+        launches[k] += bvo_launches[k]
+    note(f"dist: phase 11 took {time.perf_counter() - t_phase:.3f} s on {smi}")
+    return launches, ms, lines
+
+
+def phase_dist(dev, smi, streams, cfg=None):
+    """Phase 11 at world 1: a process group of one rank (NCCL on the card;
+    gloo for a CPU rehearsal) over a ``FileStore`` in a temporary
+    directory, then ``run_dist``.  Returns its launches and times."""
+    import torch.distributed as dist
+
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)      # the rank's card, before NCCL and the meshes
+    t = time.perf_counter()
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+                            rank=0, world_size=1)
+    say(f"dist: init_process_group took {time.perf_counter() - t:.3f} s")
+    try:
+        launches, ms, _ = run_dist(dev, smi, streams, cfg or DIST)
+        return launches, ms
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store_dir, ignore_errors=True)
+
+
 def assert_no_jax() -> None:
     """The port imports nothing of JAX or of the JAX package."""
     bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "plslam_tpu"))
@@ -1558,12 +1961,13 @@ def run_phases(args, dev, smi, kind, fixture, writer, render=None) -> int:
     disk_launches, disk_fps, disk_ate, remap_us = phase_disk(dev, smi, fixture)
     batch_launches, batch_rows, batch_ates = phase_batch(dev, smi, streams)
     rgbd_launches, rgbd_err = phase_rgbd(dev, smi)
+    dist_launches, dist_ms = phase_dist(dev, smi, streams)
     for k in report:
         by_thread = {"slam": slam_launches[k["name"]], "slam_endpoint": ep_launches[k["name"]],
                      "loop": loop_launches[k["name"]], "disk": disk_launches[k["name"]]}
         by_path = {"vo": launches[k["name"]], **by_thread, "batch": batch_launches[k["name"]],
-                   "rgbd": rgbd_launches[k["name"]]}
-        k["launches"] = (by_path["vo"] + by_path["batch"] + by_path["rgbd"]
+                   "rgbd": rgbd_launches[k["name"]], "dist": dist_launches[k["name"]]}
+        k["launches"] = (by_path["vo"] + by_path["batch"] + by_path["rgbd"] + by_path["dist"]
                          + sum(sum(v.values()) for v in by_thread.values()))
         k["launches_by_path"] = by_path
     assert_no_jax()
@@ -1577,6 +1981,8 @@ def run_phases(args, dev, smi, kind, fixture, writer, render=None) -> int:
     fps_by_b = {B: round(r["frames_per_s"], 3) for B, r in batch_rows.items()}
     say(f"batch path: aggregate frames/s by B {fps_by_b}, B={BATCH_ATE_B} ATEs "
         f"{[round(a, 6) for a in batch_ates]} m; RGB-D track error {rgbd_err:.6f} m on {smi}")
+    dist_rounded = {k: round(v, 3) for k, v in dist_ms.items()}
+    say(f"dist path (world 1): program ms {json.dumps(dist_rounded)} on {smi}")
     say(json.dumps({"batch_vo": list(batch_rows.values())}))
     say(json.dumps({"kernels": report}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -411,11 +411,16 @@ def back_substitute(a: _Assembled, Hpp_inv, Hll_inv, dpose, cfg: BAConfig):
     return dpoint, dline
 
 
-def solve_schur(a: _Assembled, prob: BAProblem, cfg: BAConfig, lam):
-    """One damped Schur solve: (dpose (K,6), dpoint (P,3), dline (L,4))."""
+def solve_schur(a: _Assembled, prob: BAProblem, cfg: BAConfig, lam, allsum=None):
+    """One damped Schur solve: (dpose (K,6), dpoint (P,3), dline (L,4)).
+    ``allsum`` sums Hcc, S_off and rhs over ranks that each hold a block of
+    the landmarks (``parallel/dist_ba.py``)."""
     free = prob.pose_valid & ~prob.pose_fixed
     Hpp_inv, Hll_inv, S_off, rhs = schur_partials(a, prob, lam, cfg)
-    dpose = solve_reduced(a.Hcc, S_off, rhs, lam, free)
+    Hcc = a.Hcc
+    if allsum is not None:
+        Hcc, S_off, rhs = allsum((Hcc, S_off, rhs))
+    dpose = solve_reduced(Hcc, S_off, rhs, lam, free)
     dpoint, dline = back_substitute(a, Hpp_inv, Hll_inv, dpose, cfg)
     return dpose, dpoint, dline
 
@@ -444,24 +449,33 @@ def _lm_select(ok, new, old):
 
 
 def lm_rounds(prob: BAProblem, cam: StereoCamera, cfg: BAConfig, p_active, l_active,
-              iters: int, robust: bool = True):
+              iters: int, robust: bool = True, allsum=None):
     """LM with accept/reject damping (the reference's levMarquardt loop
     :2530-2600) as ``iters`` fixed trips.  With ``cfg.early_exit`` a trip
     after ``lm_exit_streak`` consecutive trips of relative decrease at most
     ``lm_min_rel_decrease`` changes nothing, which gives the iterates of
-    the JAX ``while_loop``.  Returns (problem, cost, trips run)."""
+    the JAX ``while_loop``.  ``allsum``: when each rank holds a block of
+    the landmarks and their observations (``parallel/dist_ba.py``), the
+    function that sums a tensor, or a tuple of them, over the ranks; it
+    combines the costs and the reduced camera system.  Returns (problem,
+    cost, trips run)."""
     _check_precision()
     dev = prob.points.device
+
+    def cost_of(p):
+        c = total_cost(p, cam, cfg, p_active, l_active, robust)
+        return c if allsum is None else allsum(c)
+
     lam = torch.full((), cfg.lambda_init, dtype=prob.points.dtype, device=dev)
-    cost = total_cost(prob, cam, cfg, p_active, l_active, robust)
+    cost = cost_of(prob)
     streak = torch.zeros((), dtype=torch.int32, device=dev)
     trips = torch.zeros((), dtype=torch.int32, device=dev)
     exit_streak = cfg.lm_exit_streak if cfg.early_exit else iters + 1
     plans = assembly_plans(prob)
     for _ in range(iters):
         a = assemble(prob, cam, cfg, p_active, l_active, robust, plans)
-        cand = apply_update(prob, *solve_schur(a, prob, cfg, lam))
-        new_cost = total_cost(cand, cam, cfg, p_active, l_active, robust)
+        cand = apply_update(prob, *solve_schur(a, prob, cfg, lam, allsum))
+        new_cost = cost_of(cand)
         run = streak < exit_streak
         ok = (new_cost < cost) & torch.isfinite(new_cost)
         rel = torch.where(ok, (cost - new_cost) / torch.clamp(cost, min=1e-30), 0.0)
@@ -525,8 +539,8 @@ def _chunk(prob: BAProblem, c: int, T, points, lines_orth) -> BAProblem:
     return prob._replace(**x)
 
 
-def bundle_adjust_chunked(prob: BAProblem, cam: StereoCamera,
-                          cfg: BAConfig = BAConfig()) -> BAResult:
+def bundle_adjust_chunked(prob: BAProblem, cam: StereoCamera, cfg: BAConfig = BAConfig(),
+                          gather=None) -> BAResult:
     """Global BA over every landmark, tiled in fixed-shape chunks
     (globalBundleAdjustment :3022-3126).  ``prob`` carries a leading chunk
     axis C on every landmark and observation leaf (``_CHUNK_LEAVES``) and
@@ -534,44 +548,62 @@ def bundle_adjust_chunked(prob: BAProblem, cam: StereoCamera,
     their observations.  Per LM trip the reduced camera system is summed
     over the chunks, the pose update is solved once, and each chunk's
     landmarks are back-substituted.  Fixed trips, no early exit (as in the
-    JAX package)."""
+    JAX package).
+
+    ``gather`` (the JAX ``axis_name``): when each rank holds a contiguous
+    run of the chunks (``parallel/dist_gba.py``), the function that
+    concatenates a tensor's leading axis over the ranks in chunk order.
+    The chunks' costs and, after pass 1, their Hcc, S_off and rhs are then
+    gathered and summed in chunk order on every rank: the sums, and so the
+    result, of this solve in one process on all the chunks, bit for bit.
+    The chi^2 gate stays per chunk."""
     _check_precision()
     C = prob.points.shape[0]
     free = prob.pose_valid & ~prob.pose_fixed
-    dtype, dev = prob.points.dtype, prob.points.device
+    dev = prob.points.device
+
+    def chunk_sum(parts):
+        """The sum over every chunk, in chunk order, of per-chunk tensors
+        (a list over this rank's chunks)."""
+        if gather is not None:
+            parts = gather(torch.stack(parts)).unbind(0)
+        total = torch.zeros_like(parts[0])
+        for x in parts:
+            total = total + x
+        return total
 
     def cost_all(T, pts, ls, p_act, l_act):
-        return sum(total_cost(_chunk(prob, c, T, pts[c], ls[c]), cam, cfg, p_act[c], l_act[c])
-                   for c in range(C))
+        return chunk_sum([total_cost(_chunk(prob, c, T, pts[c], ls[c]), cam, cfg, p_act[c],
+                                     l_act[c]) for c in range(C)])
 
     plans = [assembly_plans(_chunk(prob, c, prob.T_c_w, prob.points[c], prob.lines_orth[c]))
              for c in range(C)]
 
     def rounds(T, pts, ls, p_act, l_act, iters):
-        lam = torch.full((), cfg.lambda_init, dtype=dtype, device=dev)
+        lam = torch.full((), cfg.lambda_init, dtype=prob.points.dtype, device=dev)
         cost = cost_all(T, pts, ls, p_act, l_act)
+        K = T.shape[0]
         for _ in range(iters):
-            K = T.shape[0]
-            Hcc = torch.zeros((K, 6, 6), dtype=dtype, device=dev)
-            S_off = torch.zeros((K, K, 6, 6), dtype=dtype, device=dev)
-            rhs = torch.zeros((K, 6), dtype=dtype, device=dev)
-            parts = []
+            systems, parts = [], []
             for c in range(C):
                 pr = _chunk(prob, c, T, pts[c], ls[c])
                 a = assemble(pr, cam, cfg, p_act[c], l_act[c], plans=plans[c])
                 Hpp_inv, Hll_inv, S_c, rhs_c = schur_partials(a, pr, lam, cfg, mode="global")
-                Hcc, S_off, rhs = Hcc + a.Hcc, S_off + S_c, rhs + rhs_c
+                systems.append(torch.cat([a.Hcc.reshape(-1), S_c.reshape(-1),
+                                          rhs_c.reshape(-1)]))
                 parts.append((a, Hpp_inv, Hll_inv))
-            dpose = solve_reduced(Hcc, S_off, rhs, lam, free)
+            Hcc, S_off, rhs = chunk_sum(systems).split([K * 36, K * K * 36, K * 6])
+            dpose = solve_reduced(Hcc.view(K, 6, 6), S_off.view(K, K, 6, 6), rhs.view(K, 6),
+                                  lam, free)
             T_new = _pose_step(dpose, T)
-            cand_pts, cand_ls, new_cost = [], [], 0.0
+            cand_pts, cand_ls, costs = [], [], []
             for c, (a, Hpp_inv, Hll_inv) in enumerate(parts):
                 dpoint, dline = back_substitute(a, Hpp_inv, Hll_inv, dpose, cfg)
                 cand_pts.append(pts[c] - dpoint)
                 cand_ls.append(orth_plus(ls[c], -dline))
-                new_cost = new_cost + total_cost(
-                    _chunk(prob, c, T_new, cand_pts[c], cand_ls[c]),
-                    cam, cfg, p_act[c], l_act[c])
+                costs.append(total_cost(_chunk(prob, c, T_new, cand_pts[c], cand_ls[c]),
+                                        cam, cfg, p_act[c], l_act[c]))
+            new_cost = chunk_sum(costs)
             ok = (new_cost < cost) & torch.isfinite(new_cost)
             T = _lm_select(ok, T_new, T)
             pts = _lm_select(ok, torch.stack(cand_pts), pts)

@@ -120,9 +120,13 @@ def build_system(g: PoseGraph, plans: SystemPlans | None = None):
     return H, b, cost
 
 
-def optimize(g: PoseGraph, iters: int = 10, damping: float = 1e-6) -> PoseGraph:
+def optimize(g: PoseGraph, iters: int = 10, damping: float = 1e-6, allsum=None) -> PoseGraph:
     """Fixed-trip Gauss-Newton.  Fixed and invalid poses get identity rows
-    and a zero right-hand side; a non-finite step becomes a zero step."""
+    and a zero right-hand side; a non-finite step becomes a zero step.
+    ``allsum``: when each rank holds a block of the edges
+    (``parallel/dist_match.make_dist_pgo``), the function that sums a
+    tuple of tensors over the ranks; H and b are summed, and every rank
+    solves."""
     K = g.T_w_k.shape[0]
     dtype, dev = g.T_w_k.dtype, g.T_w_k.device
     free = (g.valid & ~g.fixed).to(dtype)
@@ -132,6 +136,8 @@ def optimize(g: PoseGraph, iters: int = 10, damping: float = 1e-6) -> PoseGraph:
     plans = system_plans(g)
     for _ in range(iters):
         H, b, _ = build_system(g._replace(T_w_k=T), plans)
+        if allsum is not None:
+            H, b = allsum((H, b))
         Hm = H * free[:, None, None, None] * free[None, :, None, None]
         Hm.diagonal(dim1=0, dim2=1).add_(gauge.permute(1, 2, 0))
         Hmat = Hm.permute(0, 2, 1, 3).reshape(6 * K, 6 * K)

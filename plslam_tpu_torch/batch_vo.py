@@ -14,6 +14,12 @@ kernel as often as a single-stream frame does, whatever B is: 4 FAST
 and f2f, points and lines).  All state is (B,)-leading on the device; a
 step makes no host sync.
 
+With ``sharding`` (a 1-D ``DeviceMesh``, axis "seq") each rank tracks its
+contiguous block of B / world streams: ``process`` takes the global (B,
+H, W) stacks, runs the rank's (2 B_local, H, W) detection and vmapped step
+on its own card, and returns the rank's (B_local,) block;
+``gather_result`` rebuilds the (B,) result on every rank.
+
 Semantics per stream are ``VisualOdometry``'s: the same functions, the
 same state.  The (2B, H, W) detection equals the per-stream (2, H, W) one
 on the CPU; on the card the batched products may round differently, so a
@@ -27,6 +33,8 @@ import functools
 from typing import Optional
 
 import torch
+import torch.distributed as dist
+from torch.distributed.device_mesh import DeviceMesh
 
 from .core.camera import StereoCamera
 from .frontend.features import StereoFeatures
@@ -47,21 +55,33 @@ def _unflatten(tree, B: int):
 class BatchedVisualOdometry:
     """Track ``batch`` stereo streams in lockstep.  ``process`` takes (B, H,
     W) left and right images and returns a ``FrameResult`` whose fields
-    carry a leading (B,) axis."""
+    carry a leading (B,) axis: this rank's (B / world,) block when
+    ``sharding`` is a 1-D ``DeviceMesh`` (its device type that of
+    ``device``)."""
 
     def __init__(self, batch: int, cam: StereoCamera, fcfg: FrontendConfig = FrontendConfig(),
                  tcfg: TrackerConfig = TrackerConfig(), *, device="cuda",
                  dtype=torch.float32, adaptative_fast: bool = True,
-                 use_motion_model: bool = False, sharding=None):
-        if sharding is not None:
-            raise NotImplementedError(
-                "BatchedVisualOdometry(sharding=...): the batch axis across devices is "
-                "ROADMAP.md queue 1's distribution item, not yet ported")
+                 use_motion_model: bool = False, sharding: Optional[DeviceMesh] = None):
+        self.device = torch.device(device)
+        self.sharding = sharding
+        # batch: the streams of a frame; B, offset: this rank's block of them
+        self.batch = batch
         self.B = batch
+        self.offset = 0
+        if sharding is not None:
+            if not isinstance(sharding, DeviceMesh) or sharding.ndim != 1:
+                raise TypeError("sharding must be a 1-D DeviceMesh")
+            if sharding.device_type != self.device.type:
+                raise ValueError(f"a {sharding.device_type} mesh for streams on {self.device}")
+            n = sharding.size()
+            if batch % n:
+                raise ValueError(f"batch {batch} does not divide over {n} ranks")
+            self.B = batch // n
+            self.offset = sharding.get_local_rank() * self.B
         self.cam = cam
         self.fcfg = fcfg
         self.tcfg = tcfg
-        self.device = torch.device(device)
         self.dtype = dtype
         self.params = VOParams(adaptative_fast=adaptative_fast,
                                use_motion_model=use_motion_model)
@@ -71,14 +91,16 @@ class BatchedVisualOdometry:
         self.state: Optional[VOState] = None
 
     def _stack(self, img_l: torch.Tensor, img_r: torch.Tensor) -> torch.Tensor:
-        """(B, H, W) left and right -> the flat (2B, H, W) f32 stack."""
+        """(B, H, W) left and right -> the flat (2 B_local, H, W) f32 stack
+        of this rank's streams."""
         if img_l.device != self.device or img_r.device != self.device:
             raise ValueError(f"images must be on {self.device}, got "
                              f"{img_l.device}, {img_r.device}")
-        if img_l.shape[0] != self.B or img_r.shape != img_l.shape:
-            raise ValueError(f"want two ({self.B}, H, W) stacks, got "
+        if img_l.shape[0] != self.batch or img_r.shape != img_l.shape:
+            raise ValueError(f"want two ({self.batch}, H, W) stacks, got "
                              f"{tuple(img_l.shape)}, {tuple(img_r.shape)}")
-        imgs = torch.stack([img_l, img_r], dim=1).to(torch.float32)
+        mine = slice(self.offset, self.offset + self.B)
+        imgs = torch.stack([img_l[mine], img_r[mine]], dim=1).to(torch.float32)
         return imgs.reshape((2 * self.B,) + imgs.shape[2:])
 
     def _detect(self, flat: torch.Tensor, fast_th: torch.Tensor):
@@ -114,13 +136,31 @@ class BatchedVisualOdometry:
         res, self.state = self._step(kp_pair, seg_pair, self.state)
         return res
 
+    def gather_result(self, res: FrameResult) -> FrameResult:
+        """The (B,) result of every rank's (B_local,) block, on every rank
+        (``res`` itself when unsharded)."""
+        if self.sharding is None:
+            return res
+        group = self.sharding.get_group()
+
+        def gather(x):
+            part = x.contiguous()
+            if part.dtype == torch.bool:
+                return gather(part.view(torch.uint8)).view(torch.bool)
+            parts = [torch.empty_like(part) for _ in range(self.sharding.size())]
+            dist.all_gather(parts, part, group=group)
+            return torch.cat(parts)
+
+        return FrameResult(*(gather(x) for x in res))
+
     def mark_keyframe(self, mask) -> None:
         """Reset the keyframe statistics of the streams where ``mask`` (B,)
         is true."""
         st = self.state
         m = torch.as_tensor(mask, dtype=torch.bool, device=self.device)
-        if m.shape != (self.B,):
-            raise ValueError(f"mark_keyframe: want a ({self.B},) mask, got {tuple(m.shape)}")
+        if m.shape != (self.batch,):
+            raise ValueError(f"mark_keyframe: want a ({self.batch},) mask, got {tuple(m.shape)}")
+        m = m[self.offset:self.offset + self.B]
 
         def sel(new, old):
             return torch.where(m.reshape((-1,) + (1,) * (old.dim() - 1)), new, old)

@@ -2,9 +2,9 @@
 
 There are no learned weights.  What crosses over is the camera, the
 feature sets (with or without a leading stream axis), the tracking state
-(``VOState``, single or batched), BA problems and the whole SLAM map with
-the loop closer's state (``map_state_from_numpy``, the checkpoint layout);
-the descriptor tables are re-derived by the same numpy code in
+(``VOState``, single or batched), BA problems, pose graphs and the whole
+SLAM map with the loop closer's state (``map_state_from_numpy``, the
+checkpoint layout); the descriptor tables are re-derived by the same numpy code in
 ``ops/orb.py``, ``ops/lbd.py`` and ``ops/image.py``.  Inputs are numpy
 arrays, dicts of them, or NamedTuples of them (e.g.
 ``jax.tree.map(np.asarray, state)`` on the JAX side); this module never
@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .backend.ba import BAProblem
+from .backend.pgo import PoseGraph
 from .core.camera import StereoCamera
 from .frontend.features import LineSet, PointSet, StereoFeatures
 from .vo import VOState
@@ -107,6 +108,16 @@ def ba_problem_from_numpy(prob, device) -> BAProblem:
                                   device)
         out[k] = v
     return BAProblem(**out)
+
+
+def pose_graph_from_numpy(graph, device) -> PoseGraph:
+    """``PoseGraph`` on ``device`` from a mapping or NamedTuple of numpy
+    arrays (the JAX package's ``PoseGraph`` as numpy); edge indices become
+    int64, the poses keep their dtype."""
+    f = _fields(graph)
+    return PoseGraph(**{k: tensor_from_numpy(np.asarray(f[k]).astype(np.int64)
+                                             if k in ("e_i", "e_j") else f[k], device)
+                        for k in PoseGraph._fields})
 
 
 def map_state_from_numpy(state, mapper, loop_closer=None):

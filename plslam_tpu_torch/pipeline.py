@@ -11,10 +11,9 @@ closer's state in the JAX package's layout.  ``viz_every_kf`` rewrites a
 live scene HTML from the mapping thread under the map lock, and
 ``overlay_every`` renders a diagnosis overlay and a residual record of every
 N-th frame (``viz_scene``, ``viz_frame``); a failure of either is logged and
-never stops mapping or tracking.
-
-Not ported yet (ROADMAP queue 1): the distributed GBA (``mesh=``) raises
-``NotImplementedError``.
+never stops mapping or tracking.  ``finish(mesh=)`` and
+``global_bundle_adjustment(mesh=)`` run the kf-block sharded GBA
+(``parallel/dist_gba.py``) over a ``DeviceMesh`` of more than one rank.
 """
 
 from __future__ import annotations
@@ -29,6 +28,7 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from . import config as C
 from .backend.loop import LoopCloser
@@ -37,14 +37,10 @@ from .config import PLSLAMConfig
 from .core.camera import StereoCamera
 from .io.checkpoint import load_map, save_map
 from .io.trajectory import save_tum
+from .parallel.dist_gba import distributed_global_bundle_adjustment
 from .vo import VisualOdometry
 
 log = logging.getLogger(__name__)
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to plslam_tpu_torch yet "
-                               f"(ROADMAP queue 1: {item})")
 
 
 @dataclass
@@ -282,9 +278,8 @@ class PLSLAM:
     def finish(self, run_gba: bool = True, mesh=None):
         """finishSLAM + globalBundleAdjustment (app:169-176): drain and
         join the mapping and loop-closure threads, raise the first error
-        either met, then run the global BA."""
-        if mesh is not None:
-            raise _not_ported("the distributed GBA (mesh=)", "distribution")
+        either met, then run the global BA (on ``mesh`` when one is passed:
+        see ``global_bundle_adjustment``)."""
         if self._map_thread is not None:
             self._kf_queue.put(None)
             self._map_thread.join()
@@ -298,14 +293,20 @@ class PLSLAM:
         if self._map_errors:
             raise self._map_errors[0]
         if run_gba and len(self.mapper.map.keyframes) >= 3:
-            self.global_bundle_adjustment()
+            self.global_bundle_adjustment(mesh=mesh)
         return self.keyframe_trajectory()
 
     def global_bundle_adjustment(self, mesh=None):
-        """Chunked single-device GBA over every keyframe and landmark
-        (mapHandler.cpp globalBundleAdjustment :3022)."""
+        """GBA over every keyframe and landmark (mapHandler.cpp
+        globalBundleAdjustment :3022): the chunked single-device solve, or,
+        with a ``DeviceMesh`` of more than one rank, the same solve with its
+        chunks sharded over the mesh (``parallel/dist_gba.py``; every rank
+        calls it with the same map)."""
         if mesh is not None:
-            raise _not_ported("the distributed GBA (mesh=)", "distribution")
+            if not isinstance(mesh, DeviceMesh):
+                raise TypeError(f"mesh must be a DeviceMesh, got {type(mesh).__name__}")
+            if mesh.size() > 1:
+                return distributed_global_bundle_adjustment(self.mapper, mesh)
         return self.mapper.global_bundle_adjustment()
 
     def keyframe_trajectory(self):

@@ -12,7 +12,8 @@ points, 128 line slots, fast_th 15, 4 frames).
   +-6 (test_batch_vo.py's tolerances: score ties break per machine);
 - one step from the JAX batch's own state and detections, converted: poses
   to 1e-4 m;
-- mark_keyframe(mask) resets only the masked streams, sharding= raises, and
+- mark_keyframe(mask) resets only the masked streams, a sharding= that is
+  not a DeviceMesh raises, and
   no op of the step drops into functorch's per-example fallback."""
 
 import warnings
@@ -199,7 +200,9 @@ def test_mark_keyframe_resets_only_masked_streams(scenes, cam):
 
 
 def test_sharding_raises(cam):
-    with pytest.raises(NotImplementedError, match="distribution"):
+    """sharding= takes a 1-D DeviceMesh (test_torch_batch_vo_sharded.py
+    runs one); anything else raises."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         BatchedVisualOdometry(2, cam, sharding=object(), device="cpu")
 
 

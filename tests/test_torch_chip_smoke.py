@@ -205,3 +205,31 @@ def test_batch_phase_on_the_cpu(monkeypatch):
     assert rows[2]["good"] == rows[2]["frames"] == 6 and len(ates) == 2
     launches, err = chip_smoke.phase_rgbd(torch.device("cpu"), "CPU")
     assert err < 0.02 and not any(launches.values())
+
+
+# phase 11 at CPU sizes: the dry run's programs cut small, 2 streams at
+# 376x240 and one frame after initialize
+SMALL_DIST = dict(ba=dict(K=8, P=256, L=32, obs_k=4), iters=2, q=160, masked=0.05, pgo_k=32,
+                  pgo_iters=5, ring=dict(rng_seed=3, n_kf=16, n_pts=800, n_ls=80, pose_noise=0.01,
+                                         lm_noise=0.03),
+                  b=2, frames=1, widths=dict(n_points=512, n_lines=128),
+                  scene=dict(n_points=300, n_lines=40, width=376, height=240, fx=217.6,
+                             fy=217.6, cx=183.7, cy=126.1))
+
+
+def test_dist_phase_on_the_cpu():
+    """Phase 11 rehearsed on the CPU with gloo at world 1 (SMALL_DIST):
+    every program against its single-device counterpart, the sharded batch
+    bit-identical to the unsharded one; not the kernels' launch counts or
+    the card."""
+    streams = [chip_smoke.render_stream(s, 2, SMALL_DIST["scene"]) for s in range(2)]
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        launches, ms = chip_smoke.phase_dist(torch.device("cpu"), "CPU", streams, SMALL_DIST)
+    finally:
+        torch.set_num_threads(threads)
+    assert set(launches) == set(chip_smoke._wrappers()) and not any(launches.values())
+    assert {"dist_ba", "dist_ba_2d", "dist_match", "dist_pgo", "dist_gba 1-axis",
+            "dist_gba 2-axis", "dist_batch_vo", "batch_vo"} <= set(ms)
+    assert not torch.distributed.is_initialized()

@@ -42,7 +42,9 @@ def test_port_imports_no_jax_package():
     for mod in ("plslam_tpu_torch.config", "plslam_tpu_torch.pipeline",
                 "plslam_tpu_torch.io.synthetic", "plslam_tpu_torch.ops.cuda_patches",
                 "plslam_tpu_torch.batch_vo", "plslam_tpu_torch.frontend.rgbd",
-                "plslam_tpu_torch.core.segment"):
+                "plslam_tpu_torch.core.segment", "plslam_tpu_torch.io.ring_map",
+                *(f"plslam_tpu_torch.parallel.{m}" for m in
+                  ("mesh", "launch", "dist_ba", "dist_gba", "dist_match", "multihost"))):
         assert mod in res["modules"]
 
 

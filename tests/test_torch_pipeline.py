@@ -3,7 +3,7 @@ GBA) on test_pipeline_threads' synthetic scene (376x240, 8 frames, a
 keyframe nearly every frame): the threaded and the inline mapper build the
 same map, the keyframe ATE stays under max(2x the JAX package's, 0.01 m),
 errors on the worker surface at finish(), overlays and the live scene
-export are written, and the distributed GBA (not ported) raises.
+export are written, and a mesh= that is not a DeviceMesh raises.
 With loop closure (endpoint lines): the loop-closure thread never blocks
 the keyframe queue, and a feature replay closes a loop through both
 threads."""
@@ -210,10 +210,14 @@ def test_scene_export_failure_never_stops_mapping(tmp_path, caplog):
 
 
 def test_distributed_gba_raises():
-    slam, _, _ = _feature_slam(multithread_slam=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """mesh= takes a DeviceMesh (the distributed GBA runs in
+    test_torch_dist_gba.py's ranks); anything else raises."""
+    slam, poses, feats = _feature_slam(multithread_slam=False)
+    for i, (T, f) in enumerate(zip(poses, feats)):
+        slam.insert_keyframe_features(T, f, timestamp=0.1 * i)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         slam.finish(mesh=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         slam.global_bundle_adjustment(mesh=object())
 
 
