@@ -73,7 +73,27 @@ Phases, each reported on its own lines:
      ``BatchedVisualOdometry(4, sharding=)`` on phase 10's first 4 streams
      bit-identical to the unsharded batch, 4 / 2 / 4 launches per frame.
      tests/test_torch_gpu_dist.py runs this phase over every card of a
-     machine with more than one, one NCCL rank each.
+     machine with more than one, one NCCL rank each;
+ 12. evaluation: the port of the JAX package's evaluation programs, each
+     through its ``main`` in this process at its default device, held
+     against the JAX package's CPU values (scripts/jax_eval_reference.py):
+     ``e2e_robust`` at 752x480 in both line modes with the depth cut to 48
+     nuisance frames (rendered in worker processes during phase 2; each
+     mode through ``run_mode``; keyframe ATE under max(2x JAX's largest
+     over six nuisance draws, 0.01 m), good frames within 5% of N, every
+     kernel launched, Hamming from the mapping thread; the endpoint -
+     Plücker gap), ``evaluate_ate`` on its Plücker
+     dump (= ``io/trajectory.ate_rmse`` to 1e-6), ``compare_line_modes``
+     (30 frames, both modes, ATE under max(2x JAX's, 0.01 m)),
+     ``line_match_quality`` (eight rows: the wrong rate within 1.0
+     percentage point, the correct count within 2%), ``endpoint_gba_ab``
+     (both f32 GBAs under the error before them, the Plücker GBA under
+     1.39x JAX's point error, the endpoint GBA within max(10%, 5e-4 m) of
+     JAX's, the f64 oracle's iterations equal, its last cost and median point
+     error to 1e-6 relative), the 190-keyframe ``loop_stress``
+     (tests/test_loop_stress.py's properties, Hamming from the
+     loop-closure thread) and ``train_vocabulary`` at 1 scene x 2 frames
+     (the files load back); plots only where matplotlib is installed.
 Phase 4 also runs the VO twice over its frames and phase 6 ``lm_rounds``
 six times on one problem: both must repeat bit for bit.  Phase 3 also
 times the batched Hamming launch at (B, 1200, 8)^2 and (B, 256, 8)^2.
@@ -182,6 +202,49 @@ DIST = dict(ba=dict(K=32, P=4096, L=512, obs_k=6), iters=2, q=1280, masked=0.05,
             pgo_iters=5, ring=dict(rng_seed=3, n_kf=32, n_pts=4096, n_ls=512, pose_noise=0.01,
                                    lm_noise=0.03),
             b=4, frames=4, scene=BATCH_SCENE, widths=BATCH_WIDTHS)
+
+# Phase 12: the evaluation path (the port of the JAX package's evaluation
+# programs) in-process: e2e_robust's run_mode per line mode, each other
+# module's main.  The JAX CPU values are those of
+# scripts/jax_eval_reference.py {e2e 48,compare,lmq,gba,gba-seeds} and, for
+# the spread of the nuisance ATE, scripts/e2e_mode_divergence.py.
+# e2e_robust at full width with the depth cut to EVAL_FRAMES frames: per
+# mode (good frames, keyframes, keyframe ATE m of this run's nuisance draw,
+# the largest keyframe ATE m over six draws at N = 48); the port must keep
+# every frame but 5% of N that JAX keeps, and its ATE under max(2x that
+# largest ATE, 0.01 m).  The ATE is chaotic in the nuisance draw on both
+# sides: over this draw and the draws of --noise-seed 1-5
+# (scripts/e2e_mode_divergence.py run jax|torch MODE 48, a CPU, one thread)
+# JAX's endpoint ATE is 0.0090 / 0.0233 / 0.0145 / 0.0062 / 0.0157 /
+# 0.0109 m and the port's 0.0333 / 0.0059 / 0.0121 / 0.0113 / 0.0261 /
+# 0.0146 m; Plücker, JAX 0.0181 / 0.0040 / 0.0220 / 0.0105 / 0.0188 /
+# 0.0210 m, the port 0.0259 / 0.0062 / 0.0147 / 0.0120 / 0.0138 / 0.0274 m.
+EVAL_FRAMES = 48
+JAX_CPU_E2E = {"plucker": (47, 12, 0.01807218508547855, 0.022040719599415688),
+               "endpoint": (47, 12, 0.008977076076091097, 0.023334326469678014)}
+# compare_line_modes: each mode's aligned keyframe ATE (m), 30 frames
+JAX_CPU_COMPARE = {"endpoint": 0.049063676866237256, "plucker": 0.06483893442144012}
+# line_match_quality: (label, matches, correct) of the eight rows; per row
+# the wrong rate within 1.0 percentage point and the correct count within 2%
+JAX_CPU_LMQ = (("baseline (full-segment)", 578, 528), ("PRODUCTION (+twoway 25px)", 547, 528),
+               ("baseline oneside", 578, 528), ("baseline midpoint", 589, 535),
+               ("long-lines full-segment", 983, 836), ("long-lines +twoway 25px", 880, 836),
+               ("long-lines oneside", 983, 836), ("long-lines midpoint", 1006, 852))
+# endpoint_gba_ab: median point errors (m) of (a) and (b) and the f64
+# oracle's iterations (equal), last cost and median point error (1e-6
+# relative).  Both f32 GBAs must end under the error before them.  (a), the
+# Plücker GBA, under GBA_PLUCKER_RATIO x JAX's: the largest port/JAX ratio
+# over the ring's seeds 1-7 on the CPU, 1.29 (seed 3, this ring: 0.006309
+# against 0.004888 m; seeds 1, 2, 4-7 0.94-1.18; scripts/jax_eval_reference.py
+# gba-seeds), plus a margin of 0.10.  (b), the endpoint GBA, within
+# max(10%, 5e-4 m) of JAX's: on the card it reads 0.006250 m, the same to the
+# digit in every run; on the CPU its f32 outcome is chaotic on both sides
+# (seed 3: the port 0.047 m; seed 6: JAX 0.078, the port 0.18 m).
+GBA_PLUCKER_RATIO = 1.29 + 0.10
+JAX_CPU_GBA = {"ours_plucker": 0.004888185405764885, "ours_endpoint": 0.006422390450644931,
+               "oracle_pt": 0.005751876630915977, "oracle_last": 1.5451575653142723e-08,
+               "oracle_iters": 40}
+VOCAB_SCENES, VOCAB_FRAMES = 1, 2
 
 # Phase 3's timing.  Device time: TIMED_LAUNCHES back-to-back calls,
 # captured once in a CUDA graph and replayed between two CUDA events.
@@ -889,114 +952,6 @@ def phase_endpoint_slam(dev, scene, smi):
     return by_thread, fps, ate
 
 
-class RingWorld:
-    """numpy twin of tests/_map_fixtures.RingWorld (same draws, same order):
-    points and wall-tangent segments on a cylindrical corridor wall."""
-
-    def __init__(self, n_pts=3000, n_ls=300, seed=5, radius=8.0, depth=(3.0, 8.0),
-                 height=2.5):
-        rng = np.random.default_rng(seed)
-        self.radius = radius
-        phi = rng.uniform(0, 2 * np.pi, n_pts)
-        rp = radius + rng.uniform(depth[0], depth[1], n_pts)
-        self.pts = np.stack([rp * np.cos(phi), rng.uniform(-height, height, n_pts),
-                             rp * np.sin(phi)], axis=-1)
-        self.pt_desc = rng.integers(0, 2 ** 32, (n_pts, 8), dtype=np.uint32)
-        phi = rng.uniform(0, 2 * np.pi, n_ls)
-        rl = radius + rng.uniform(depth[0], depth[1], n_ls)
-        A = np.stack([rl * np.cos(phi), rng.uniform(-height, height, n_ls),
-                      rl * np.sin(phi)], axis=-1)
-        tang = np.stack([-np.sin(phi), np.zeros(n_ls), np.cos(phi)], -1)
-        vert = np.stack([np.zeros(n_ls), np.ones(n_ls), np.zeros(n_ls)], -1)
-        is_v = rng.uniform(size=n_ls) < 0.4
-        B = A + np.where(is_v[:, None], vert, tang) * rng.uniform(0.8, 2.0, n_ls)[:, None]
-        self.ls_A, self.ls_B = A, B
-        self.ls_desc = rng.integers(0, 2 ** 32, (n_ls, 8), dtype=np.uint32)
-
-    def pose_at(self, theta: float) -> np.ndarray:
-        """Camera->world pose on the ring at angle theta, looking outward."""
-        z = np.array([np.cos(theta), 0.0, np.sin(theta)])
-        y = np.array([0.0, 1.0, 0.0])
-        T = np.eye(4)
-        T[:3, 0], T[:3, 1], T[:3, 2], T[:3, 3] = np.cross(y, z), y, z, self.radius * z
-        return T
-
-
-def _desc_noise(desc, n_bits, rng):
-    """Flip n_bits random bits per descriptor (a few bits differ between
-    sightings of one feature)."""
-    if n_bits <= 0 or not len(desc):
-        return desc
-    out = desc.copy()
-    words = rng.integers(0, 8, (len(desc), n_bits))
-    bits = rng.integers(0, 32, (len(desc), n_bits))
-    for j in range(n_bits):
-        out[np.arange(len(desc)), words[:, j]] ^= np.uint32(1) << bits[:, j].astype(np.uint32)
-    return out
-
-
-def render_ring_features(world, T_w_c, cam, rng, cap_pt=160, cap_ls=24, desc_noise_bits=6,
-                         width=752, height=480):
-    """numpy twin of tests/_map_fixtures.render_ring_features: the cap_pt
-    points and cap_ls segments nearest the image centre, padded, as
-    {"points": {...}, "lines": {...}} of numpy arrays (uint32 words);
-    ``cam`` is (fx, fy, cx, cy, b) as floats, ``rng`` draws the descriptor
-    noise."""
-    fx, fy, cx, cy, bl = cam
-    T_c_w = np.linalg.inv(T_w_c)
-    R, t = T_c_w[:3, :3], T_c_w[:3, 3]
-
-    def proj(Pw):
-        Pc = Pw @ R.T + t
-        z = np.maximum(Pc[:, 2], 1e-9)
-        uv = np.stack([cx + fx * Pc[:, 0] / z, cy + fy * Pc[:, 1] / z], -1)
-        ok = ((Pc[:, 2] > 0.5) & (uv[:, 0] >= 8) & (uv[:, 0] < width - 8)
-              & (uv[:, 1] >= 8) & (uv[:, 1] < height - 8))
-        return Pc, uv, ok
-
-    Pc, uv, ok = proj(world.pts)
-    d2 = (uv[:, 0] - cx) ** 2 + (uv[:, 1] - cy) ** 2
-    d2[~ok] = np.inf
-    sel = np.argsort(d2)[:cap_pt]
-    sel = sel[np.isfinite(d2[sel])]
-    n = len(sel)
-    f32 = functools.partial(np.zeros, dtype=np.float32)
-    points = dict(uv=f32((cap_pt, 2)), disp=np.ones(cap_pt, np.float32), P=f32((cap_pt, 3)),
-                  desc=np.zeros((cap_pt, 8), np.uint32), sigma2=np.ones(cap_pt, np.float32),
-                  valid=np.arange(cap_pt) < n)
-    points["uv"][:n] = uv[sel]
-    points["P"][:n] = Pc[sel]
-    points["desc"][:n] = _desc_noise(world.pt_desc[sel], desc_noise_bits, rng)
-    points["disp"][:n] = fx * bl / np.maximum(Pc[sel, 2], 1e-9)
-
-    aC, auv, aok = proj(world.ls_A)
-    bC, buv, bok = proj(world.ls_B)
-    lok = aok & bok
-    mid2 = ((0.5 * (auv + buv) - np.array([cx, cy])) ** 2).sum(-1)
-    mid2[~lok] = np.inf
-    lsel = np.argsort(mid2)[:cap_ls]
-    lsel = lsel[np.isfinite(mid2[lsel])]
-    m = len(lsel)
-    lines = dict(sp=f32((cap_ls, 2)), ep=f32((cap_ls, 2)), sdisp=np.ones(cap_ls, np.float32),
-                 edisp=np.ones(cap_ls, np.float32), sP=f32((cap_ls, 3)), eP=f32((cap_ls, 3)),
-                 le=f32((cap_ls, 3)), angle=None, NDc=f32((cap_ls, 6)),
-                 desc=np.zeros((cap_ls, 8), np.uint32), sigma2=np.ones(cap_ls, np.float32),
-                 valid=np.arange(cap_ls) < m)
-    if m:
-        a2, b2 = auv[lsel], buv[lsel]
-        le = np.cross(np.concatenate([a2, np.ones((m, 1))], 1),
-                      np.concatenate([b2, np.ones((m, 1))], 1))
-        lines["le"][:m] = le / np.maximum(np.hypot(le[:, 0], le[:, 1]), 1e-9)[:, None]
-        lines["sp"][:m], lines["ep"][:m] = a2, b2
-        lines["sP"][:m], lines["eP"][:m] = aC[lsel], bC[lsel]
-        lines["NDc"][:m] = np.concatenate([np.cross(aC[lsel], bC[lsel]),
-                                           bC[lsel] - aC[lsel]], axis=-1)
-        lines["desc"][:m] = _desc_noise(world.ls_desc[lsel], desc_noise_bits, rng)
-    lines["angle"] = np.arctan2(lines["ep"][:, 1] - lines["sp"][:, 1],
-                                lines["ep"][:, 0] - lines["sp"][:, 0]).astype(np.float32)
-    return {"points": points, "lines": lines}
-
-
 def _ate_translation(T_est, T_true) -> float:
     """ATE RMSE with translation-only alignment (both gauges KF0-fixed)."""
     e = np.stack([T[:3, 3] for T in T_est])
@@ -1021,6 +976,7 @@ def phase_loop_closure(dev, smi):
     from plslam_tpu_torch.convert import stereo_features_from_numpy
     from plslam_tpu_torch.core import lie
     from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.io.ring_world import RingWorld, render_ring_features
     from plslam_tpu_torch.pipeline import PLSLAM
 
     cam = StereoCamera.create(458.0, 457.0, 376.0, 240.0, 0.11, width=752, height=480)
@@ -1877,6 +1833,215 @@ def phase_dist(dev, smi, streams, cfg=None):
         shutil.rmtree(store_dir, ignore_errors=True)
 
 
+def start_eval_render():
+    """Render phase 12's nuisance frames (e2e_robust's scene at 752x480,
+    EVAL_FRAMES frames) in spawned worker processes during the build; the
+    frames equal the serial render."""
+    from plslam_tpu_torch import e2e_robust
+
+    poses = e2e_robust.circular_trajectory(EVAL_FRAMES, step_t=0.02, step_r=0.002)
+    return e2e_robust.FrameRender(e2e_robust.make_scene(), poses, RENDER_WORKERS)
+
+
+def wait_eval_render(job) -> list:
+    t = time.perf_counter()
+    frames = job.result(timeout=900)
+    say(f"build: phase 12's {len(frames)} nuisance pairs rendered ({RENDER_WORKERS} worker "
+        f"processes; waited {time.perf_counter() - t:.3f} s)")
+    return frames
+
+
+def _by_thread(wrappers) -> dict:
+    return {k: fn.launches_by_thread() for k, fn in wrappers.items()}
+
+
+def _launches_since(before: dict, after: dict) -> dict:
+    """Per kernel and thread, the launches between two ``_by_thread`` reads."""
+    return {k: {t: n - before[k].get(t, 0) for t, n in after[k].items()
+                if n - before[k].get(t, 0)} for k in after}
+
+
+def phase_eval(dev, smi, frames):
+    """Phase 12: the evaluation programs on the card (``e2e_robust`` through
+    ``run_mode`` once per line mode, the others through their ``main``),
+    each held to its bar against the JAX package's CPU values; returns the
+    launches by kernel and thread over the whole phase and the values of
+    the summary line."""
+    from plslam_tpu_torch import (compare_line_modes, e2e_robust, endpoint_gba_ab,
+                                  evaluate_ate, line_match_quality, loop_stress,
+                                  train_vocabulary)
+    from plslam_tpu_torch.backend import vocab
+
+    # on the card each program runs at its default device, a bare "cuda"
+    device_flag = [] if dev.type == "cuda" else ["--device", str(dev)]
+    device_kw = {} if dev.type == "cuda" else {"device": str(dev)}
+    wrappers = _wrappers()
+    kernels = KERNEL_WRAPPERS if dev.type == "cuda" else ()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_eval_")
+    summary = {}
+    try:
+        # e2e_robust, both modes, each mode's launches read around its run
+        scene = e2e_robust.make_scene()
+        poses = e2e_robust.circular_trajectory(EVAL_FRAMES, step_t=0.02, step_r=0.002)
+        e2e_robust.save_gt(work, poses)
+        per_mode, rows = {}, []
+        t = time.perf_counter()
+        for plucker in (True, False):
+            before = _by_thread(wrappers)
+            rows.append(e2e_robust.run_mode(plucker, frames, poses, e2e_robust.camera(scene),
+                                            work, **device_kw))
+            per_mode[rows[-1]["mode"]] = _launches_since(before, _by_thread(wrappers))
+        _sync(dev)
+        say(f"eval e2e_robust: {EVAL_FRAMES} frames at {frames[0][0].shape[1]}x"
+            f"{frames[0][0].shape[0]} in both modes in "
+            f"{time.perf_counter() - t:.3f} s on {smi}")
+        ate = {}
+        for r in rows:
+            good, nkf, jate, jate_max = JAX_CPU_E2E[r["mode"]]
+            ate[r["mode"]] = a = r["ate_rmse_unrounded"]
+            floor = max(2.0 * jate_max, 0.01)
+            say(f"eval e2e_robust {r['mode']}: {r['good_frames']}/{r['frames']} good (JAX CPU "
+                f"{good}), {r['keyframes']} keyframes (JAX CPU {nkf}), keyframe ATE {a:.6f} m "
+                f"(floor {floor:.6f}, JAX CPU {jate:.6f}), path {r['path_len_m']} m, "
+                f"{r['track_fps']} tracking frames/s; launches {per_mode[r['mode']]}")
+            if not a <= floor:
+                raise AssertionError(f"e2e_robust {r['mode']}: ATE {a} above floor {floor}")
+            if not r["good_frames"] >= good - 0.05 * EVAL_FRAMES:
+                raise AssertionError(f"e2e_robust {r['mode']}: {r['good_frames']} good frames, "
+                                     f"JAX CPU {good}")
+            for k in kernels:
+                if sum(per_mode[r["mode"]][k].values()) <= 0:
+                    raise AssertionError(f"e2e_robust {r['mode']}: {k} never launched")
+            if kernels and per_mode[r["mode"]]["hamming_distance_matrix_cuda"].get(
+                    MAPPER_THREAD, 0) <= 0:
+                raise AssertionError(f"e2e_robust {r['mode']}: the mapping thread never "
+                                     "launched the Hamming kernel")
+        summary["e2e_gap"] = ate["endpoint"] - ate["plucker"]
+        summary["e2e"] = ate
+        say(f"eval e2e_robust: endpoint - Plücker keyframe ATE gap {summary['e2e_gap']:+.6f} m "
+            f"(JAX CPU {JAX_CPU_E2E['endpoint'][2] - JAX_CPU_E2E['plucker'][2]:+.6f} m at "
+            f"{EVAL_FRAMES} frames)")
+
+        # the ATE tool on the Plücker dump against the ground truth
+        got = evaluate_ate.main([os.path.join(work, "e2e_robust_plucker.tum"),
+                                 os.path.join(work, "e2e_robust_gt.tum")])
+        d = abs(got["ate_rmse"] - ate["plucker"])
+        say(f"eval evaluate_ate: {got['ate_rmse']:.9f} m over {got['n_pairs']} pairs against "
+            f"io/trajectory.ate_rmse {ate['plucker']:.9f} m (|diff| {d:.3g})")
+        n_kf = {r["mode"]: r["keyframes"] for r in rows}["plucker"]
+        if not (d <= 1e-6 and got["n_pairs"] == n_kf):
+            raise AssertionError(f"evaluate_ate {got} vs ate_rmse {ate['plucker']}, {n_kf} "
+                                 "keyframes")
+
+        # the line-mode comparison, in full
+        t = time.perf_counter()
+        cmp = compare_line_modes.main(device_flag)
+        _sync(dev)
+        for mode, jate in JAX_CPU_COMPARE.items():
+            a, floor = cmp[mode]["ate_rmse_m"], max(2.0 * jate, 0.01)
+            say(f"eval compare_line_modes {mode}: keyframe ATE {a:.6f} m (floor {floor:.6f}, JAX "
+                f"CPU {jate:.6f}), {cmp[mode]['keyframes']} keyframes")
+            if not a <= floor:
+                raise AssertionError(f"compare_line_modes {mode}: ATE {a} above floor {floor}")
+        summary["compare_diff"] = cmp["difference_m"]
+        say(f"eval compare_line_modes: |difference| {cmp['difference_m']:.6f} m over "
+            f"{cmp['travel_m']:.2f} m in {time.perf_counter() - t:.3f} s on {smi}")
+
+        # line-match quality, the eight rows
+        t = time.perf_counter()
+        rows = line_match_quality.main(device_flag)
+        if len(rows) != len(JAX_CPU_LMQ):
+            raise AssertionError(f"line_match_quality: {len(rows)} rows, JAX {len(JAX_CPU_LMQ)}")
+        for r, (label, jm, jok) in zip(rows, JAX_CPU_LMQ):
+            rate, jrate = 100.0 * r["wrong"] / max(r["matches"], 1), 100.0 * (jm - jok) / jm
+            ok = (r["label"] == label and abs(rate - jrate) <= 1.0
+                  and abs(r["correct"] - jok) <= 0.02 * jok)
+            say(f"eval line_match_quality {label}: wrong {rate:.2f}% (JAX CPU {jrate:.2f}%), "
+                f"correct {r['correct']} (JAX CPU {jok}), matches {r['matches']} (JAX CPU {jm})")
+            if not ok:
+                raise AssertionError(f"line_match_quality {label}: {r} vs JAX {jm}, {jok}")
+        summary["lmq_production"] = 100.0 * rows[1]["wrong"] / max(rows[1]["matches"], 1)
+        say(f"eval line_match_quality: {len(rows)} rows in {time.perf_counter() - t:.3f} s on {smi}")
+
+        # the endpoint-GBA oracle
+        t = time.perf_counter()
+        gba = endpoint_gba_ab.main(device_flag)
+        o = gba["oracle_endpoint_f64"]
+        for name in ("ours_plucker", "ours_endpoint"):
+            want = JAX_CPU_GBA[name]
+            say(f"eval endpoint_gba_ab {name}: median point error {gba[name]['pt']:.6f} m (JAX "
+                f"CPU {want:.6f}; before {gba['pre']['pt']:.6f}), "
+                f"{1e3 * gba[name]['wall_s']:.3f} ms")
+        pt_a, pt_b, pre = gba["ours_plucker"]["pt"], gba["ours_endpoint"]["pt"], gba["pre"]["pt"]
+        jb = JAX_CPU_GBA["ours_endpoint"]
+        if not (pt_a < pre and pt_a <= GBA_PLUCKER_RATIO * JAX_CPU_GBA["ours_plucker"]
+                and pt_b < pre and abs(pt_b - jb) <= max(0.10 * jb, 5e-4)):
+            raise AssertionError(f"endpoint_gba_ab: {gba['ours_plucker']}, {gba['ours_endpoint']}"
+                                 f" vs JAX {JAX_CPU_GBA}, before {pre}")
+        d_cost = abs(o["cost_hist"][-1] / JAX_CPU_GBA["oracle_last"] - 1)
+        d_pt = abs(o["pt"] / JAX_CPU_GBA["oracle_pt"] - 1)
+        say(f"eval endpoint_gba_ab oracle: {o['iters_used']} iterations (JAX CPU "
+            f"{JAX_CPU_GBA['oracle_iters']}), cost {o['cost_hist'][0]:.6g} -> "
+            f"{o['cost_hist'][-1]:.10g} (relative to JAX CPU {d_cost:.3g}), median point "
+            f"error {o['pt']:.9f} m (relative {d_pt:.3g}); first Jacobian call "
+            f"{o['first_call_s']:.3f} s, solve {o['wall_s']:.3f} s; phase step "
+            f"{time.perf_counter() - t:.3f} s on {smi}")
+        if not (o["iters_used"] == JAX_CPU_GBA["oracle_iters"] and d_cost <= 1e-6
+                and d_pt <= 1e-6):
+            raise AssertionError(f"endpoint_gba_ab oracle: iterations {o['iters_used']}, cost "
+                                 f"{d_cost}, point error {d_pt} relative to JAX")
+        summary["gba"] = (gba["ours_plucker"]["pt"], gba["ours_endpoint"]["pt"], o["pt"])
+
+        # the loop-closure stress at full size
+        t = time.perf_counter()
+        before = _by_thread(wrappers)
+        out = loop_stress.main(device_flag)
+        stress = _launches_since(before, _by_thread(wrappers))
+        say(f"eval loop_stress: {out['keyframes']} keyframes, closures {out['closures']}, conf "
+            f"rows {out['conf_rows']} in {time.perf_counter() - t:.3f} s; launches {stress} "
+            f"on {smi}")
+        if kernels and stress["hamming_distance_matrix_cuda"].get(LOOP_THREAD, 0) <= 0:
+            raise AssertionError("loop_stress: the loop-closure thread never launched Hamming")
+        summary["closures"] = out["closures"]
+
+        # the vocabulary trainer, cut to VOCAB_SCENES x VOCAB_FRAMES
+        t = time.perf_counter()
+        paths = train_vocabulary.main([os.path.join(work, "vocab"), "--scenes",
+                                       str(VOCAB_SCENES), "--frames", str(VOCAB_FRAMES),
+                                       *device_flag])
+        words = [vocab.load_dbow2_vocabulary(p).num_words for p in paths]
+        say(f"eval train_vocabulary: {VOCAB_SCENES} scene x {VOCAB_FRAMES} frames, words {words}"
+            f" loaded back in {time.perf_counter() - t:.3f} s")
+        if words != [train_vocabulary.K ** train_vocabulary.DEPTH] * 2:
+            raise AssertionError(f"train_vocabulary: words {words}")
+
+        if importlib.util.find_spec("matplotlib") is None:
+            say("eval plots: not rendered: the card's machine has no matplotlib (viz.py is held "
+                "pixel for pixel against the JAX package on the CPU)")
+        else:
+            from plslam_tpu_torch import viz
+            from plslam_tpu_torch.evaluate_ate import read_tum
+
+            est = read_tum(os.path.join(work, "e2e_robust_plucker.tum"))[1]
+            traj = np.tile(np.eye(4), (len(est), 1, 1))
+            traj[:, :3, 3] = est
+            path = viz.plot_trajectory(traj, os.path.join(work, "trajectory.png"),
+                                       gt=read_tum(os.path.join(work, "e2e_robust_gt.tum"))[1])
+            say(f"eval plots: {os.path.basename(path)} of the Plücker run rendered")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    launches = _by_thread(wrappers)
+    total = {k: sum(v.values()) for k, v in launches.items()}
+    say(f"eval: phase 12 took {time.perf_counter() - t_phase:.3f} s; launches {total} on {smi}")
+    for k in kernels:
+        if total[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on the evaluation path")
+    return launches, summary
+
+
 def assert_no_jax() -> None:
     """The port imports nothing of JAX or of the JAX package."""
     bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "plslam_tpu"))
@@ -1900,24 +2065,27 @@ def main(argv=()) -> int:
     say(f"device: {kind}; nvidia-smi: {smi}; torch {torch.__version__} "
         f"cuda {torch.version.cuda}")
 
-    fixture = writer = render = None
-    if not args.kernels:
-        fixture = tempfile.mkdtemp(prefix="chip_smoke_disk_")
-        writer = start_disk_fixture(fixture)
-        render = start_batch_render()
+    fixture = writer = render = eval_render = None
     try:
-        return run_phases(args, dev, smi, kind, fixture, writer, render)
+        if not args.kernels:
+            fixture = tempfile.mkdtemp(prefix="chip_smoke_disk_")
+            writer = start_disk_fixture(fixture)
+            render = start_batch_render()
+            eval_render = start_eval_render()
+        return run_phases(args, dev, smi, kind, fixture, writer, render, eval_render)
     finally:
         if writer is not None and writer.poll() is None:
             writer.kill()
             writer.wait()
         if render is not None:
             render[0].shutdown(cancel_futures=True)
+        if eval_render is not None:
+            eval_render.close()
         if fixture is not None:
             shutil.rmtree(fixture, ignore_errors=True)
 
 
-def run_phases(args, dev, smi, kind, fixture, writer, render=None) -> int:
+def run_phases(args, dev, smi, kind, fixture, writer, render=None, eval_render=None) -> int:
     from plslam_tpu_torch.io import SyntheticScene, circular_trajectory
     from plslam_tpu_torch.ops import cuda_lib
     from plslam_tpu_torch.ops.image import build_pyramid
@@ -1931,6 +2099,7 @@ def run_phases(args, dev, smi, kind, fixture, writer, render=None) -> int:
     if writer is not None:
         wait_disk_fixture(writer)
     streams = wait_batch_render(render) if render is not None else None
+    eval_frames = wait_eval_render(eval_render) if eval_render is not None else None
 
     # bench.py's configuration, frames staged on the device
     scene = SyntheticScene(n_points=600, n_lines=60, seed=0, width=752, height=480,
@@ -1962,9 +2131,11 @@ def run_phases(args, dev, smi, kind, fixture, writer, render=None) -> int:
     batch_launches, batch_rows, batch_ates = phase_batch(dev, smi, streams)
     rgbd_launches, rgbd_err = phase_rgbd(dev, smi)
     dist_launches, dist_ms = phase_dist(dev, smi, streams)
+    eval_launches, ev = phase_eval(dev, smi, eval_frames)
     for k in report:
         by_thread = {"slam": slam_launches[k["name"]], "slam_endpoint": ep_launches[k["name"]],
-                     "loop": loop_launches[k["name"]], "disk": disk_launches[k["name"]]}
+                     "loop": loop_launches[k["name"]], "disk": disk_launches[k["name"]],
+                     "eval": eval_launches[k["name"]]}
         by_path = {"vo": launches[k["name"]], **by_thread, "batch": batch_launches[k["name"]],
                    "rgbd": rgbd_launches[k["name"]], "dist": dist_launches[k["name"]]}
         k["launches"] = (by_path["vo"] + by_path["batch"] + by_path["rgbd"] + by_path["dist"]
@@ -1983,6 +2154,12 @@ def run_phases(args, dev, smi, kind, fixture, writer, render=None) -> int:
         f"{[round(a, 6) for a in batch_ates]} m; RGB-D track error {rgbd_err:.6f} m on {smi}")
     dist_rounded = {k: round(v, 3) for k, v in dist_ms.items()}
     say(f"dist path (world 1): program ms {json.dumps(dist_rounded)} on {smi}")
+    say(f"eval path: e2e_robust ({EVAL_FRAMES} frames) keyframe ATE Plücker "
+        f"{ev['e2e']['plucker']:.6f} m, endpoint {ev['e2e']['endpoint']:.6f} m (gap "
+        f"{ev['e2e_gap']:+.6f}); compare_line_modes |difference| {ev['compare_diff']:.6f} m; "
+        f"production line wrong-match rate {ev['lmq_production']:.2f}%; endpoint_gba_ab median "
+        f"point errors (a, b, oracle) {[round(x, 6) for x in ev['gba']]} m; loop stress "
+        f"closures {ev['closures']} on {smi}")
     say(json.dumps({"batch_vo": list(batch_rows.values())}))
     say(json.dumps({"kernels": report}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -37,6 +37,7 @@ import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
 from .core.camera import StereoCamera
+from .device import on_device
 from .frontend.features import StereoFeatures
 from .frontend.frame import (FrontendConfig, _detect_describe_lines_batch,
                              _detect_describe_points_batch)
@@ -93,7 +94,7 @@ class BatchedVisualOdometry:
     def _stack(self, img_l: torch.Tensor, img_r: torch.Tensor) -> torch.Tensor:
         """(B, H, W) left and right -> the flat (2 B_local, H, W) f32 stack
         of this rank's streams."""
-        if img_l.device != self.device or img_r.device != self.device:
+        if not (on_device(img_l, self.device) and on_device(img_r, self.device)):
             raise ValueError(f"images must be on {self.device}, got "
                              f"{img_l.device}, {img_r.device}")
         if img_l.shape[0] != self.batch or img_r.shape != img_l.shape:

@@ -13,6 +13,16 @@ from __future__ import annotations
 import torch
 
 
+def on_device(t: torch.Tensor, device: torch.device) -> bool:
+    """Whether ``t`` lies on ``device``.  A bare ``cuda`` (no index, every
+    entry point's default) names the current card, which is where
+    ``.to("cuda")`` puts a tensor: that tensor reports ``cuda:0``, and
+    ``torch.device("cuda") != torch.device("cuda:0")``."""
+    if device.type == "cuda" and device.index is None:
+        return t.device.type == "cuda" and t.device.index == torch.cuda.current_device()
+    return t.device == device
+
+
 def set_precision_policy() -> None:
     """Full-f32 matmuls and convolutions (no TF32)."""
     torch.backends.cuda.matmul.allow_tf32 = False

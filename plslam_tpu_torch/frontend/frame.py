@@ -69,6 +69,13 @@ def _detect_describe_lines_batch(imgs: torch.Tensor, cfg: FrontendConfig):
     return seg, lbd.describe_batch(imgs, seg.sp, seg.ep, seg.valid)
 
 
+def _detect_describe_lines(img: torch.Tensor, cfg: FrontendConfig):
+    """(H, W) image -> Segments + (K, 8) LBD descriptors: the batched
+    detector on ``img[None]``, the batch axis taken off."""
+    seg, desc = _detect_describe_lines_batch(img[None], cfg)
+    return type(seg)(*(x[0] for x in seg)), desc[0]
+
+
 def _match_stereo_points(kp_l, desc_l, kp_r, desc_r, cam: StereoCamera,
                          cfg: FrontendConfig) -> PointSet:
     """Left-right point matching + epipolar/disparity gates

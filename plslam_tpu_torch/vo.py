@@ -20,6 +20,7 @@ import torch
 
 from .core import lie
 from .core.camera import StereoCamera
+from .device import on_device
 from .frontend import f2f
 from .frontend.features import StereoFeatures
 from .frontend.frame import (FrontendConfig, _detect_describe_lines_batch,
@@ -111,7 +112,7 @@ class VisualOdometry:
         self.state: Optional[VOState] = None
 
     def _stack(self, img_l: torch.Tensor, img_r: torch.Tensor) -> torch.Tensor:
-        if img_l.device != self.device or img_r.device != self.device:
+        if not (on_device(img_l, self.device) and on_device(img_r, self.device)):
             raise ValueError(f"images must be on {self.device}, got "
                              f"{img_l.device}, {img_r.device}")
         return torch.stack([img_l, img_r]).to(torch.float32)

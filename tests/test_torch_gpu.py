@@ -248,3 +248,25 @@ def test_batched_vo_launches_per_frame(dev):
         torch.cuda.synchronize()
         assert [fn.launches - b for fn, b in zip(wrappers, before)] == [4, 2, 4]
         assert res.T_f_w.shape == (B, 4, 4) and bool(res.good.all())
+
+
+def test_default_device_takes_images_moved_to_cuda(dev):
+    """``VisualOdometry`` and ``BatchedVisualOdometry`` at their default
+    device ``"cuda"`` take images moved with ``.to("cuda")`` (they report
+    ``cuda:0``)."""
+    import numpy as np
+
+    from plslam_tpu_torch.batch_vo import BatchedVisualOdometry
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.io.synthetic import SyntheticScene
+    from plslam_tpu_torch.vo import VisualOdometry
+
+    scene = SyntheticScene(n_points=300, n_lines=30, seed=1, width=376, height=240,
+                           fx=217.6, fy=217.6, cx=183.7, cy=126.1)
+    cam = StereoCamera.create(scene.fx, scene.fy, scene.cx, scene.cy, scene.b,
+                              width=scene.width, height=scene.height)
+    il, ir = (torch.from_numpy(x).to("cuda") for x in scene.render_stereo(np.eye(4)))
+    feats = VisualOdometry(cam).initialize(il, ir)
+    assert int(feats.points.valid.sum()) > 20
+    bvo = BatchedVisualOdometry(1, cam)
+    bvo.initialize(il[None], ir[None])

@@ -58,3 +58,23 @@ def cams(fx=435.2, fy=435.2, cx=367.4, cy=252.2, b=0.110074, width=752, height=4
 
     return (JCam.create(fx, fy, cx, cy, b, width, height, dtype=jnp.float32),
             TCam.create(fx, fy, cx, cy, b, width, height))
+
+
+def load_script(name: str, argv=()):
+    """Import ``scripts/<name>.py`` of the JAX package's repository as a
+    module, with ``argv`` as its command line while it loads (a script may
+    read it at import)."""
+    import importlib.util
+    import os
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(f"_script_{name}",
+                                                  os.path.join(root, "scripts", name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    saved, sys.argv = sys.argv, [spec.origin, *argv]
+    try:
+        spec.loader.exec_module(mod)
+    finally:
+        sys.argv = saved
+    return mod

@@ -19,6 +19,9 @@ from plslam_tpu_torch.pipeline import PLSLAM
 from plslam_tpu_torch.vo import VisualOdometry
 
 ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+# the evaluation programs that run on the card: python -m plslam_tpu_torch.<name>
+EVAL_MODULES = ("line_match_quality", "compare_line_modes", "e2e_robust", "endpoint_gba_ab",
+                "loop_stress", "train_vocabulary")
 
 PROBE = r"""
 import importlib, importlib.util, json, pkgutil, sys
@@ -43,6 +46,9 @@ def test_port_imports_no_jax_package():
                 "plslam_tpu_torch.io.synthetic", "plslam_tpu_torch.ops.cuda_patches",
                 "plslam_tpu_torch.batch_vo", "plslam_tpu_torch.frontend.rgbd",
                 "plslam_tpu_torch.core.segment", "plslam_tpu_torch.io.ring_map",
+                "plslam_tpu_torch.io.ring_world",
+                *(f"plslam_tpu_torch.{m}" for m in EVAL_MODULES),
+                "plslam_tpu_torch.evaluate_ate", "plslam_tpu_torch.viz",
                 *(f"plslam_tpu_torch.parallel.{m}" for m in
                   ("mesh", "launch", "dist_ba", "dist_gba", "dist_match", "multihost"))):
         assert mod in res["modules"]
@@ -61,3 +67,45 @@ def test_no_fallback_to_the_cpu():
     assert vo.device.type == "cuda"
     with pytest.raises(ValueError, match="must be on cuda"):
         vo.initialize(torch.zeros(120, 188), torch.zeros(120, 188))
+
+
+def test_bare_cuda_names_the_current_card(monkeypatch):
+    """``.to("cuda")`` puts a tensor on the current card, and the tensor
+    reports ``cuda:<index>``; the entry points' default device ``"cuda"``
+    accepts it.  It used to refuse it: ``VisualOdometry._stack`` compared
+    ``torch.device("cuda")`` with ``cuda:0``, so every program run with its
+    default ``--device`` raised on its first frame."""
+    from types import SimpleNamespace
+
+    from plslam_tpu_torch.device import on_device
+
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+
+    def at(name):
+        return SimpleNamespace(device=torch.device(name))
+
+    cuda = torch.device("cuda")
+    assert on_device(at("cuda:1"), cuda)
+    assert not on_device(at("cuda:0"), cuda) and not on_device(at("cpu"), cuda)
+    assert on_device(at("cuda:0"), torch.device("cuda:0"))
+    assert not on_device(at("cuda:1"), torch.device("cuda:0"))
+    assert on_device(at("cpu"), torch.device("cpu"))
+
+
+@pytest.mark.parametrize("name", EVAL_MODULES)
+def test_evaluation_programs_default_to_the_card(name, monkeypatch):
+    """Each program's --device defaults to cuda (read off its parser, which
+    stops the run before any work)."""
+    import argparse
+    import importlib
+
+    seen = {}
+
+    def grab(self, args=None, namespace=None):
+        seen["device"] = self.get_default("device")
+        raise SystemExit(0)
+
+    monkeypatch.setattr(argparse.ArgumentParser, "parse_args", grab)
+    with pytest.raises(SystemExit):
+        importlib.import_module(f"plslam_tpu_torch.{name}").main([])
+    assert seen["device"] == "cuda"

@@ -64,16 +64,13 @@ def _port_vo(scene):
                              TrackerConfig(), device="cpu")
 
 
-def test_fused_step_from_same_state_and_detections():
-    """At test_vo_e2e's 376x240 configuration, where the pose solve is well
-    conditioned (at 188x120 a frame has under 20 inliers and GN has not
-    converged after its 5 + 10 trips, so rounding moves the pose by mm)."""
+def _fused_step(plucker_lines: bool):
     scene = SyntheticScene(seed=3)
     frames = [scene.render_stereo(T) for T in circular_trajectory(2)]
     cam = JCam.create(scene.fx, scene.fy, scene.cx, scene.cy, scene.b,
                       width=scene.width, height=scene.height, dtype=jnp.float32)
     jv = jvo_mod.VisualOdometry(cam, JFcfg(n_points=512, n_lines=128, fast_th=15.0),
-                                JTcfg())
+                                JTcfg(plucker_lines=plucker_lines))
     jv.initialize(*(jnp.asarray(x) for x in frames[0]))
     state0 = jv.state
     imgs = jnp.asarray(np.stack(frames[1]))
@@ -85,8 +82,8 @@ def test_fused_step_from_same_state_and_detections():
     pv = vo.VisualOdometry(
         StereoCamera.create(scene.fx, scene.fy, scene.cx, scene.cy, scene.b,
                             width=scene.width, height=scene.height),
-        FrontendConfig(n_points=512, n_lines=128, fast_th=15.0), TrackerConfig(),
-        device="cpu")
+        FrontendConfig(n_points=512, n_lines=128, fast_th=15.0),
+        TrackerConfig(plucker_lines=plucker_lines), device="cpu")
     state = convert.vo_state_from_numpy(to_np(state0), "cpu")
     tkp = fast.Keypoints(*(t(x) for x in to_np(kp)))
     tseg = lines.Segments(*(t(x) for x in to_np(seg)))
@@ -98,6 +95,23 @@ def test_fused_step_from_same_state_and_detections():
     np.testing.assert_allclose(to_np(got.T_f_w), np.asarray(want.T_f_w), rtol=0, atol=1e-4)
     assert float(gstate.fast_th) == float(wstate.fast_th)
     assert bool(got.is_kf) == bool(want.is_kf)
+
+
+def test_fused_step_from_same_state_and_detections():
+    """At test_vo_e2e's 376x240 configuration, where the pose solve is well
+    conditioned (at 188x120 a frame has under 20 inliers and GN has not
+    converged after its 5 + 10 trips, so rounding moves the pose by mm)."""
+    _fused_step(plucker_lines=True)
+
+
+def test_fused_step_endpoint_lines_from_same_state_and_detections():
+    """The same step with the tracker's endpoint-line branch (the
+    reference's baseline; its gradient residue is left unscaled on both
+    sides): the pose to 1e-4 as in Plücker mode.  On e2e_robust's
+    752x480 nuisance frames 1-3 the two packages' steps from the same
+    detections agree to 1.3e-6 in endpoint mode and 8.5e-6 in Plücker
+    mode (``scripts/e2e_mode_divergence.py vo-step``)."""
+    _fused_step(plucker_lines=False)
 
 
 def test_four_frame_run_against_jax(sequence, jax_run):
