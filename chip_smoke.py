@@ -18,20 +18,31 @@ Phases, each reported on its own lines:
      function, never called by the port), the bound (bytes or operations
      over the H100's published peaks) and the share bound / device time;
   4. VO path: ``VisualOdometry`` at the bench configuration (752x480,
-     1200 points, 256 line slots) on the synthetic scene; every frame must
-     track, ATE must stay under the floor, every kernel must have launched;
+     1200 points, 256 line slots) on the synthetic scene, its step one
+     CUDA graph (``prewarm``, then one replay per frame): every frame must
+     track, ATE must stay under the floor, 2 / 4 / 4 patch / FAST / Hamming
+     launches per frame through the replays' accounting, one replay and
+     one graph launch per frame, no host sync in a graphed step, every
+     frame's ``T_f_w`` bit-identical to the same step with
+     ``capture=False``; frames/s of both forms in interleaved windows, and
+     a profile of each (device busy, device kernels and host CUDA calls
+     per frame);
   5. SLAM path: ``PLSLAM`` at bench_slam.py's configuration (tracking, the
-     mapping worker thread, deferred local BA, chunked GBA at finish);
-     every frame good, >= 8 keyframes, a local BA written back, finite GBA
-     poses, keyframe ATE under the floor, the Hamming kernel launched from
-     the mapping thread;
-  6. local BA: LM iterations/s of ``lm_rounds`` (f32, K=8, P=512, L=64);
+     mapping worker thread, deferred local BA, chunked GBA at finish),
+     the tracker and the local BA graphed, beside the same run eagerly:
+     for both, every frame good, >= 8 keyframes, a local BA written back,
+     finite GBA poses, keyframe ATE under the floor; the graphed run's
+     local-BA buckets captured and the Hamming kernel launched from the
+     mapping thread; local-BA ms per solve of both;
+  6. local BA: LM iterations/s of ``lm_rounds`` (f32, K=8, P=512, L=64),
+     eager and as one CUDA graph; the graphed iterates and the graphed
+     ``bundle_adjust`` bit for bit the eager ones;
   7. endpoint SLAM from images: phase 5's configuration with endpoint
      lines, loop closure (the shipped DBoW2 vocabularies) and the keyframe
-     pose refinement; every frame good, >= 8 keyframes, a local BA written
-     back, every keyframe BoW-encoded, no loop (20 frames lie under
-     ``lc_kf_dist``), keyframe ATE under the floor, the Hamming kernel
-     launched from the mapping thread;
+     pose refinement, graphed beside eager; for both every frame good,
+     >= 8 keyframes, a local BA written back, every keyframe BoW-encoded,
+     no loop (20 frames lie under ``lc_kf_dist``), keyframe ATE under the
+     floor; the Hamming kernel launched from the mapping thread;
   8. loop closure at reference scale: the 156-keyframe ring replay of
      tests/test_scale_e2e.py through ``insert_keyframe_features`` (drifted
      odometry, ``lc_kf_dist=50``, online vocabulary): a closure against
@@ -51,10 +62,12 @@ Phases, each reported on its own lines:
      loader decode ms, the stage split and the CLI's frames/s;
  10. batched VO and RGB-D: ``BatchedVisualOdometry`` at
      scripts/bench_batch_vo.py's configuration (16 streams rendered in
-     worker processes during phase 2) for B in 1, 2, 4, 8, 16: aggregate
-     and per-stream frames/s, every frame of every stream good, 4 FAST / 2
-     patch / 4 Hamming launches per frame at every B, no host sync, no
-     vmap fallback; at B = 4 each stream's ATE under max(2x the JAX
+     worker processes during phase 2) for B in 1, 2, 4, 8, 16, its step
+     one CUDA graph per B: aggregate and per-stream frames/s of the
+     graphed step beside the eager one, every frame's ``T_f_w``
+     bit-identical between the two, every frame of every stream good, 4
+     FAST / 2 patch / 4 Hamming launches per graphed frame at every B, no
+     host sync, no vmap fallback; at B = 4 each stream's ATE under max(2x the JAX
      package's CPU value, 0.01 m); at B = 2 each stream against
      single-stream ``VisualOdometry``; then tests/test_rgbd.py's two-frame
      RGB-D track (error under 0.02 m, the FAST and patch kernels launched);
@@ -94,8 +107,11 @@ Phases, each reported on its own lines:
      (tests/test_loop_stress.py's properties, Hamming from the
      loop-closure thread) and ``train_vocabulary`` at 1 scene x 2 frames
      (the files load back); plots only where matplotlib is installed.
-Phase 4 also runs the VO twice over its frames and phase 6 ``lm_rounds``
-six times on one problem: both must repeat bit for bit.  Phase 3 also
+Phase 4 runs the VO graphed and eagerly over its frames and phase 6
+``lm_rounds`` six times eagerly and five times graphed on one problem:
+both must repeat bit for bit.  After phases 4, 5, 7, 9, 10 and 12 a line
+gives the process's CUDA graphs: captures, replays, and the graphs alive
+with their pools' bytes.  Phase 3 also
 times the batched Hamming launch at (B, 1200, 8)^2 and (B, 256, 8)^2.
 Then come the summary lines, the kernel summary as one JSON line, and the
 result as the last line.  Any failure raises and exits non-zero, and so
@@ -104,6 +120,7 @@ does an import of JAX or of the JAX package (``plslam_tpu``).
 
 import argparse
 import functools
+import gc
 import importlib.util
 import json
 import logging
@@ -124,6 +141,8 @@ ATE_FLOOR = max(2.0 * JAX_CPU_ATE, 0.01)
 
 N_WARMUP = 3
 N_FRAMES = 20
+VO_WINDOWS = 2        # interleaved graphed / eager windows of the N_FRAMES frames
+PROFILE_FRAMES = 5    # frames of each form under torch.profiler
 
 # Keyframe ATE (m, Umeyama-aligned, keyframes matched to ground truth by
 # timestamp) of the JAX package's PLSLAM on the SLAM phase's 20 frames,
@@ -183,8 +202,8 @@ JAX_CPU_BATCH_ATE = (0.022467623002017618, 0.03780642143164076, 0.04595160796949
                      0.04782139652707396)
 BATCH_ATE_B = 4
 BATCH_MATCH_B = 2   # streams held against single-stream VisualOdometry
-# launches per batched frame, whatever B is
-BATCH_LAUNCHES = {"fast_score_nms_batch": 4, "gather_patches_batch": 2,
+# launches per VO frame, and per batched frame whatever B is
+FRAME_LAUNCHES = {"fast_score_nms_batch": 4, "gather_patches_batch": 2,
                   "hamming_distance_matrix_cuda": 4}
 RENDER_WORKERS = 8
 # tests/test_rgbd.py's two-frame RGB-D scenario
@@ -620,51 +639,105 @@ def _wrappers():
             "hamming_distance_matrix_cuda": cuda_hamming.hamming_distance_matrix_cuda}
 
 
-def phase_main_path(dev, scene, poses, frames):
-    """VisualOdometry through the kernels at the bench configuration."""
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """The same bits (a NaN equals a NaN of the same bits)."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8)))
+
+
+def results_equal(a, b) -> bool:
+    """Two results (NamedTuples of tensors) bit for bit, field by field."""
+    return all(bits_equal(x, y) for x, y in zip(a, b))
+
+
+def phase_main_path(dev, scene, poses, frames, smi):
+    """VisualOdometry through the kernels at the bench configuration: the
+    graphed step (one CUDA-graph replay per frame) against the same step
+    with ``capture=False``."""
     from plslam_tpu_torch.core.camera import StereoCamera
     from plslam_tpu_torch.frontend.frame import FrontendConfig
     from plslam_tpu_torch.frontend.tracker import TrackerConfig
     from plslam_tpu_torch.io import ate_rmse
+    from plslam_tpu_torch.profile_vo import profile_window
     from plslam_tpu_torch.vo import VisualOdometry
 
     wrappers = _wrappers()
     cam = StereoCamera.create(scene.fx, scene.fy, scene.cx, scene.cy, scene.b,
                               width=scene.width, height=scene.height)
-    vo = VisualOdometry(cam, FrontendConfig(n_points=1200, n_lines=256),
-                        TrackerConfig(), device=dev)
+    fcfg, tcfg = FrontendConfig(n_points=1200, n_lines=256), TrackerConfig()
+    vo = VisualOdometry(cam, fcfg, tcfg, device=dev)
+    eager = VisualOdometry(cam, fcfg, tcfg, device=dev, capture=False)
 
     for fn in wrappers.values():
         fn.launches = 0
+    t = time.perf_counter()
+    vo.prewarm(frames[0][0].shape, progress=lambda m: say(f"main path prewarm: {m}"))
+    _sync(dev)
+    capture_s = time.perf_counter() - t
+    prog = vo.programs()[0]
     vo.initialize(*frames[0])
     results = [vo.process(*frames[i]) for i in range(1, N_WARMUP + 1)]
-    torch.cuda.synchronize()
+    _sync(dev)
+    warm_state = vo.state
     before = {k: fn.launches for k, fn in wrappers.items()}
+    replays = prog.replays
     t0 = time.perf_counter()
     for i in range(N_WARMUP + 1, N_WARMUP + 1 + N_FRAMES):
         results.append(vo.process(*frames[i]))
-    torch.cuda.synchronize()
+    _sync(dev)
     dt = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in wrappers.items()}
+    replays = prog.replays - replays
 
-    # the step keeps its state on the card: one more step (repeating the
-    # last frame) under sync-debug "error" raises on any host sync
+    # the graphed step keeps its state on the card: one more step
+    # (repeating the last frame) under sync-debug "error" raises on any
+    # host sync
     torch.cuda.set_sync_debug_mode("error")
     vo.process(*frames[-1])
     torch.cuda.set_sync_debug_mode(0)
-    say("main path: a step made no host sync (sync debug mode 'error')")
+    say("main path: a graphed step made no host sync (sync debug mode 'error')")
 
-    # the step repeats: a second VisualOdometry over the same frames gives
-    # every frame's pose bit for bit (the sums are in a fixed order)
-    again = VisualOdometry(cam, vo.fcfg, vo.tcfg, device=dev)
-    again.initialize(*frames[0])
-    repeat = [again.process(*frames[i]) for i in range(1, len(results) + 1)]
-    same = [torch.equal(a.T_f_w, b.T_f_w) for a, b in zip(results, repeat)]
-    diff = max(float((a.T_f_w - b.T_f_w).abs().max()) for a, b in zip(results, repeat))
-    say(f"main path repeat: {sum(same)}/{len(same)} frames' T_f_w bit-identical across two "
-        f"runs (max |diff| {diff:.3g})")
+    # the graphed step against the same step run eagerly, frame by frame
+    eager.initialize(*frames[0])
+    ref = [eager.process(*frames[i]) for i in range(1, len(results) + 1)]
+    same = [bits_equal(a.T_f_w, b.T_f_w) for a, b in zip(results, ref)]
+    every = sum(results_equal(a, b) for a, b in zip(results, ref))
+    diff = max(float((a.T_f_w - b.T_f_w).abs().max()) for a, b in zip(results, ref))
+    say(f"main path graphed vs eager: {sum(same)}/{len(same)} frames' T_f_w bit-identical, "
+        f"{every}/{len(same)} frames' every result field (max |T_f_w diff| {diff:.3g})")
     if not all(same):
-        raise AssertionError(f"the VO step does not repeat: frames {same}")
+        raise AssertionError(f"the graphed VO step departs from the eager one: frames {same}")
+
+    # frames/s of both forms in interleaved windows over the timed frames,
+    # each from the state after the warm-up frames
+    timed = frames[N_WARMUP + 1:N_WARMUP + 1 + N_FRAMES]
+    fps = {"graphed": [], "eager": []}
+    for name in ("graphed", "eager") * VO_WINDOWS:
+        v = vo if name == "graphed" else eager
+        v.state = warm_state
+        _sync(dev)
+        t = time.perf_counter()
+        for f in timed:
+            v.process(*f)
+        _sync(dev)
+        fps[name].append(len(timed) / (time.perf_counter() - t))
+    prof = {}
+    for name, v in (("graphed", vo), ("eager", eager)):
+        v.state = warm_state
+        w = profile_window(lambda i, v=v: v.process(*timed[i]), PROFILE_FRAMES)
+        prof[name] = {k: w[k] for k in ("wall_ms", "busy_ms", "busy_share", "kernels",
+                                         "host_cuda_calls", "graph_launches")}
+        say(f"main path profile {name} ({PROFILE_FRAMES} frames): wall {w['wall_ms']:.3f} "
+            f"ms/frame, device busy {w['busy_ms']:.3f} ms/frame ({100 * w['busy_share']:.2f}% "
+            f"of wall), {w['kernels']:.1f} device kernels/frame, {w['host_cuda_calls']:.1f} "
+            f"host CUDA calls/frame, {w['graph_launches']:.1f} graph launches/frame on {smi}")
+    say(f"main path frames/s in interleaved windows of {len(timed)} frames: graphed "
+        f"{[round(x, 3) for x in fps['graphed']]}, eager {[round(x, 3) for x in fps['eager']]} "
+        f"on {smi}")
+    say(f"main path graph: captured in {capture_s:.3f} s (prewarm: {fcfg.n_points} points, "
+        f"{fcfg.n_lines} line slots, {frames[0][0].shape[1]}x{frames[0][0].shape[0]}), pool "
+        f"{prog.pool_bytes() / 2**20:.3f} MiB, {replays} replays over {N_FRAMES} timed frames, "
+        f"launches per replay {prog.launches_per_replay()}")
 
     est = np.stack([np.eye(4)] + [r.T_f_w.cpu().numpy() for r in results])
     if est.shape != (len(poses), 4, 4) or not np.isfinite(est).all():
@@ -673,111 +746,155 @@ def phase_main_path(dev, scene, poses, frames):
     good = [bool(r.good) for r in results]
     gt = np.stack([p[:3, 3] for p in poses])
     ate = ate_rmse(est[:, :3, 3], gt, align=False)
-    fps = N_FRAMES / dt
     timed_good = sum(good[N_WARMUP:])
     say(f"main path: {timed_good}/{N_FRAMES} timed frames good, "
         f"{sum(good)}/{len(good)} overall; ATE {ate:.6f} m (floor {ATE_FLOOR:.6f}, "
-        f"JAX CPU {JAX_CPU_ATE:.6f}); {fps:.3f} frames/s over {N_FRAMES} frames")
+        f"JAX CPU {JAX_CPU_ATE:.6f}); {N_FRAMES / dt:.3f} graphed frames/s over {N_FRAMES} "
+        f"frames")
     per_frame = {k: (launches[k] - before[k]) / N_FRAMES for k in wrappers}
-    say(f"main path launches (init + {len(results)} frames): {launches}; "
+    say(f"main path launches (prewarm, init + {len(results)} frames): {launches}; "
         f"per timed frame: {per_frame}")
     if not all(good):
         raise AssertionError(f"frames lost tracking: {good}")
     if not ate <= ATE_FLOOR:
         raise AssertionError(f"ATE {ate} above floor {ATE_FLOOR}")
-    for k, n in launches.items():
-        if n <= 0:
+    if dev.type == "cuda" and (replays != N_FRAMES or prof["graphed"]["graph_launches"] != 1):
+        raise AssertionError(f"{replays} replays over {N_FRAMES} frames, "
+                             f"{prof['graphed']['graph_launches']} graph launches per frame")
+    for k in KERNEL_WRAPPERS:
+        if launches[k] <= 0:
             raise AssertionError(f"kernel {k} never launched on the main path")
-    return launches, fps, ate
+        if per_frame[k] != FRAME_LAUNCHES[k]:
+            raise AssertionError(f"{k} launched {per_frame[k]} times per graphed frame, "
+                                 f"want {FRAME_LAUNCHES[k]}")
+    return launches, {k: float(np.median(v)) for k, v in fps.items()}, ate, prof
 
 
-def phase_slam(dev, scene, smi):
-    """PLSLAM through the kernels at bench_slam.py's configuration."""
-    from plslam_tpu_torch.backend.mapping import MapConfig
-    from plslam_tpu_torch.config import PLSLAMConfig
-    from plslam_tpu_torch.core.camera import StereoCamera
-    from plslam_tpu_torch.io import ate_rmse, circular_trajectory
+def run_slam(dev, cam, poses, frames, cfg, mcfg, capture: bool) -> dict:
+    """PLSLAM over ``frames`` (the first SLAM_WARMUP untimed), its tracker
+    and mapper graphed or with ``capture=False``; the launch counts are set
+    to 0 before the run and read after it.  Then LBA_REPS local BAs of the
+    final window, solved and copied back (no write-back), host clock around
+    a synchronized solve, and the GBA at finish."""
+    from plslam_tpu_torch.io import ate_rmse
     from plslam_tpu_torch.pipeline import PLSLAM
+
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    slam = PLSLAM(cam, cfg, mcfg, device=dev, capture=capture)
+    t0 = time.perf_counter()
+    for i in range(SLAM_WARMUP):
+        slam.process(*frames[i], timestamp=0.05 * i)
+    slam.wait_until_idle()
+    _sync(dev)
+    t1 = time.perf_counter()
+    for i in range(SLAM_WARMUP, len(frames)):
+        slam.process(*frames[i], timestamp=0.05 * i)
+    slam.wait_until_idle()
+    _sync(dev)
+    r = {"slam": slam, "fps": (len(frames) - SLAM_WARMUP) / (time.perf_counter() - t1),
+         "n_kf": len(slam.mapper.map.keyframes), "n_lba": slam.mapper.n_local_ba_applied,
+         "n_bow": len(slam.loop_closer.bow) if slam.loop_closer is not None else None}
+    lba_ms = []
+    with slam.mapper._map_lock:
+        for _ in range(LBA_REPS):
+            prob, meta = slam.mapper.build_local_ba()
+            _sync(dev)
+            t = time.perf_counter()
+            out, _ = slam.mapper._solve_local(prob, meta)
+            out.cpu()
+            lba_ms.append(1e3 * (time.perf_counter() - t))
+    r["lba_ms"] = lba_ms
+    r["lba_shape"] = (int(prob.T_c_w.shape[0]), len(meta["pt_ids"]), len(meta["ls_ids"]),
+                      int(prob.p_valid.sum()), int(prob.l_valid.sum()))
+    r["ba_graphs"] = slam.mapper.ba_graph_stats()
+    r["vo_pool"] = sum(p.pool_bytes() for p in slam.vo.programs())
+    t = time.perf_counter()
+    r["traj"] = traj = slam.finish(run_gba=True)
+    _sync(dev)
+    r["gba_ms"] = 1e3 * (time.perf_counter() - t)
+    r["wall"] = time.perf_counter() - t0
+    r["by_thread"] = _by_thread(wrappers)
+    r["good"] = [lg.good for lg in slam.logs]
+    est = np.stack([T[:3, 3] for T in traj])
+    gt = np.stack([poses[int(round(ts / 0.05))][:3, 3] for ts in slam.kf_timestamps])
+    r["ate"] = ate_rmse(est, gt, align=True)
+    return r
+
+
+def check_slam(name: str, g: dict, e: dict, floor: float, jax_ate: float, smi: str) -> None:
+    """Report the graphed run ``g`` beside the eager run ``e`` and hold
+    both to the SLAM checks; the graphed run also to its kernel launches."""
+    same = len(g["traj"]) == len(e["traj"]) and all(
+        np.array_equal(a, b) for a, b in zip(g["traj"], e["traj"]))
+    for form, r in (("graphed", g), ("eager", e)):
+        say(f"{name} {form}: {r['fps']:.3f} full-SLAM frames/s over {SLAM_FRAMES} frames "
+            f"({r['wall']:.3f} s for all {len(r['good'])} frames and the GBA); "
+            f"{sum(r['good'])}/{len(r['good'])} frames good; {r['n_kf']} keyframes; "
+            f"{r['n_lba']} local BAs written back; keyframe ATE {r['ate']:.6f} m (aligned; "
+            f"floor {floor:.6f}, JAX CPU {jax_ate:.6f}); GBA (finish) {r['gba_ms']:.3f} ms on "
+            f"{smi}")
+        say(f"{name} {form}: local BA median {float(np.median(r['lba_ms'])):.3f} ms per solve "
+            f"(min {min(r['lba_ms']):.3f}, max {max(r['lba_ms']):.3f}; {LBA_REPS} solves of the "
+            f"final window; K, points, lines, point obs, line obs = {r['lba_shape']}); BA "
+            f"graphs {r['ba_graphs']}; VO graph pool {r['vo_pool'] / 2**20:.3f} MiB")
+    say(f"{name}: graphed and eager keyframe trajectories bit-identical: {same}")
+    say(f"{name} launches by thread (graphed run): {g['by_thread']}")
+    for form, r in (("graphed", g), ("eager", e)):
+        slam = r["slam"]
+        if slam._map_errors:
+            raise AssertionError(f"{name} {form}: a worker thread raised: {slam._map_errors!r}")
+        if not all(r["good"]):
+            raise AssertionError(f"{name} {form}: frames lost tracking: {r['good']}")
+        if r["n_kf"] < 8:
+            raise AssertionError(f"{name} {form}: only {r['n_kf']} keyframes")
+        if r["n_lba"] < 1:
+            raise AssertionError(f"{name} {form}: no local BA was written back")
+        if r["n_bow"] is not None and r["n_bow"] != r["n_kf"]:
+            raise AssertionError(f"{name} {form}: {r['n_bow']} BoW records for {r['n_kf']} "
+                                 "keyframes")
+        if slam.loop_reports:
+            raise AssertionError(f"{name} {form}: false loop closure: {slam.loop_reports}")
+        if not np.isfinite(np.stack(r["traj"])).all():
+            raise AssertionError(f"{name} {form}: GBA poses are not finite")
+        if not r["ate"] <= floor:
+            raise AssertionError(f"{name} {form}: keyframe ATE {r['ate']} above floor {floor}")
+    if g["ba_graphs"]["captured"] < 1:
+        raise AssertionError(f"{name}: no local-BA graph was captured")
+    if g["by_thread"]["hamming_distance_matrix_cuda"].get(MAPPER_THREAD, 0) <= 0:
+        raise AssertionError(f"{name}: the mapping thread never launched the Hamming kernel")
+    for k in KERNEL_WRAPPERS:
+        if sum(g["by_thread"][k].values()) <= 0:
+            raise AssertionError(f"{name}: kernel {k} never launched")
+
+
+def slam_frames(dev, scene):
+    from plslam_tpu_torch.core.camera import StereoCamera
+    from plslam_tpu_torch.io import circular_trajectory
 
     cam = StereoCamera.create(scene.fx, scene.fy, scene.cx, scene.cy, scene.b,
                               width=scene.width, height=scene.height)
     poses = circular_trajectory(SLAM_WARMUP + SLAM_FRAMES, step_t=0.05)
     frames = [tuple(torch.from_numpy(x).to(dev) for x in scene.render_stereo(T, noise=1.0))
               for T in poses]
-    torch.cuda.synchronize()
-    wrappers = _wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
-    slam = PLSLAM(cam, PLSLAMConfig(orb_nfeatures=1200, lsd_nfeatures=256,
-                                    min_entropy_ratio=0.99),
-                  MapConfig(local_ba_kf=8, ba_points=2048, ba_lines=256, ba_pobs=8192,
-                            ba_lobs=2048), device=dev)
-    for i in range(SLAM_WARMUP):
-        slam.process(*frames[i], timestamp=0.05 * i)
-    slam.wait_until_idle()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for i in range(SLAM_WARMUP, SLAM_WARMUP + SLAM_FRAMES):
-        slam.process(*frames[i], timestamp=0.05 * i)
-    slam.wait_until_idle()
-    torch.cuda.synchronize()
-    fps = SLAM_FRAMES / (time.perf_counter() - t0)
-    n_kf = len(slam.mapper.map.keyframes)
-    n_lba = slam.mapper.n_local_ba_applied
+    _sync(dev)
+    return cam, poses, frames
 
-    # local BA of the final 8-keyframe window, solved and copied back
-    # (no write-back), host clock around a synchronized solve
-    lba_ms = []
-    with slam.mapper._map_lock:
-        for _ in range(LBA_REPS):
-            prob, meta = slam.mapper.build_local_ba()
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out, _ = slam.mapper._solve_local(prob, meta)
-            out.cpu()
-            lba_ms.append(1e3 * (time.perf_counter() - t))
-    lba_shape = (int(prob.T_c_w.shape[0]), len(meta["pt_ids"]), len(meta["ls_ids"]),
-                 int(prob.p_valid.sum()), int(prob.l_valid.sum()))
 
-    t = time.perf_counter()
-    traj = slam.finish(run_gba=True)
-    torch.cuda.synchronize()
-    gba_ms = 1e3 * (time.perf_counter() - t)
-    by_thread = {k: fn.launches_by_thread() for k, fn in wrappers.items()}
+def phase_slam(dev, scene, smi):
+    """PLSLAM through the kernels at bench_slam.py's configuration, the
+    tracker and the mapper graphed, beside the same run eagerly."""
+    from plslam_tpu_torch.backend.mapping import MapConfig
+    from plslam_tpu_torch.config import PLSLAMConfig
 
-    good = [lg.good for lg in slam.logs]
-    est = np.stack([T[:3, 3] for T in traj])
-    gt = np.stack([poses[int(round(ts / 0.05))][:3, 3] for ts in slam.kf_timestamps])
-    ate = ate_rmse(est, gt, align=True)
-    mapper_hamming = by_thread["hamming_distance_matrix_cuda"].get(MAPPER_THREAD, 0)
-    say(f"slam: {fps:.3f} full-SLAM frames/s over {SLAM_FRAMES} frames; "
-        f"{sum(good)}/{len(good)} frames good; {n_kf} keyframes; "
-        f"{n_lba} local BAs written back")
-    say(f"slam: local BA median {float(np.median(lba_ms)):.3f} ms (min {min(lba_ms):.3f}, "
-        f"max {max(lba_ms):.3f}; {LBA_REPS} solves; K, points, lines, point obs, "
-        f"line obs = {lba_shape}); GBA (finish) {gba_ms:.3f} ms over {len(traj)} "
-        f"keyframes on {smi}")
-    say(f"slam: keyframe ATE {ate:.6f} m (aligned; floor {SLAM_ATE_FLOOR:.6f}, "
-        f"JAX CPU {JAX_CPU_SLAM_ATE:.6f})")
-    say(f"slam launches by thread: {by_thread}")
-    if slam._map_errors:
-        raise AssertionError(f"mapping thread raised: {slam._map_errors!r}")
-    if not all(good):
-        raise AssertionError(f"frames lost tracking: {good}")
-    if n_kf < 8:
-        raise AssertionError(f"only {n_kf} keyframes")
-    if n_lba < 1:
-        raise AssertionError("no local BA was written back")
-    if not np.isfinite(np.stack(traj)).all():
-        raise AssertionError("GBA poses are not finite")
-    if not ate <= SLAM_ATE_FLOOR:
-        raise AssertionError(f"keyframe ATE {ate} above floor {SLAM_ATE_FLOOR}")
-    if mapper_hamming <= 0:
-        raise AssertionError("the mapping thread never launched the Hamming kernel")
-    for k in KERNEL_WRAPPERS:
-        if sum(by_thread[k].values()) <= 0:
-            raise AssertionError(f"kernel {k} never launched on the SLAM path")
-    return by_thread, fps, ate
+    cam, poses, frames = slam_frames(dev, scene)
+    cfg = PLSLAMConfig(orb_nfeatures=1200, lsd_nfeatures=256, min_entropy_ratio=0.99)
+    mcfg = MapConfig(local_ba_kf=8, ba_points=2048, ba_lines=256, ba_pobs=8192, ba_lobs=2048)
+    g = run_slam(dev, cam, poses, frames, cfg, mcfg, capture=True)
+    e = run_slam(dev, cam, poses, frames, cfg, mcfg, capture=False)
+    check_slam("slam", g, e, SLAM_ATE_FLOOR, JAX_CPU_SLAM_ATE, smi)
+    return g["by_thread"], {"graphed": g["fps"], "eager": e["fps"]}, g["ate"]
 
 
 def make_ba_problem_np(K=8, P=512, L=64, noise=0.0, pert=0.02, seed=11):
@@ -801,16 +918,19 @@ def make_ba_problem_np(K=8, P=512, L=64, noise=0.0, pert=0.02, seed=11):
                 pert_orth=pert_orth, noise_uv=noise_uv, noise_s=noise_s, noise_e=noise_e)
 
 
-def phase_local_ba(dev, smi):
-    """LM iterations/s of the local-BA solver (bench_slam.py's problem)."""
+LBA_CAM = (435.2, 435.2, 367.4, 252.2, 0.110074)
+
+
+def local_ba_problem(dev, K=8, P=512, L=64):
+    """bench_slam.py's f32 BA problem on ``dev``: ``make_ba_problem_np``'s
+    draws projected by the LBA_CAM camera."""
     from plslam_tpu_torch.backend import ba
     from plslam_tpu_torch.core import lie
     from plslam_tpu_torch.core.camera import StereoCamera
     from plslam_tpu_torch.core.plucker import plucker_from_two_points, plucker_to_orth
 
-    K, P, L = 8, 512, 64
     d = {k: torch.from_numpy(v).to(dev) for k, v in make_ba_problem_np(K, P, L).items()}
-    cam = StereoCamera.create(435.2, 435.2, 367.4, 252.2, 0.110074)
+    cam = StereoCamera.create(*LBA_CAM)
     T_c_w = lie.inv_se3(lie.exp_se3(d["poses_xi"]))
     cp = torch.arange(K, device=dev).repeat_interleave(P)
     lp = torch.arange(P, device=dev).repeat(K)
@@ -824,7 +944,7 @@ def phase_local_ba(dev, smi):
     orth = plucker_to_orth(Lw / scale[:, None]) + d["pert_orth"]
     f32 = torch.float32
     ones = functools.partial(torch.ones, device=dev)
-    prob = ba.BAProblem(
+    return ba.BAProblem(
         T_c_w=(lie.exp_se3(d["pert_xi"]) @ T_c_w).to(f32),
         pose_fixed=torch.arange(K, device=dev) == 0, pose_valid=ones(K, dtype=torch.bool),
         points=(d["Pw"] + d["pert_P"]).to(f32), point_valid=ones(P, dtype=torch.bool),
@@ -833,123 +953,113 @@ def phase_local_ba(dev, smi):
         p_valid=ones(K * P, dtype=torch.bool),
         l_cam=cl, l_lm=ll, l_sobs=sA.to(f32), l_eobs=eB.to(f32),
         l_sigma2=ones(K * L, dtype=f32), l_valid=ones(K * L, dtype=torch.bool))
+
+
+def phase_local_ba(dev, smi):
+    """LM iterations/s of the local-BA solver (bench_slam.py's problem),
+    eager and as one CUDA graph, and the graphed iterates and
+    ``bundle_adjust`` against eager bit for bit."""
+    from plslam_tpu_torch import graphs
+    from plslam_tpu_torch.backend import ba
+    from plslam_tpu_torch.core.camera import StereoCamera
+
+    K, P, L = 8, 512, 64
+    cam = StereoCamera.create(*LBA_CAM)
+    prob = local_ba_problem(dev, K, P, L)
     cfg = ba.BAConfig()
     cost0 = float(ba.total_cost(prob, cam, cfg, prob.p_valid, prob.l_valid))
 
     def run():
         return ba.lm_rounds(prob, cam, cfg, prob.p_valid, prob.l_valid, LM_ITERS)
 
+    def timed(fn):
+        """LM_REPS calls of fn between two CUDA events: (results, ms)."""
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        out = []
+        start.record()
+        for _ in range(LM_REPS):
+            out.append(fn())
+        end.record()
+        end.synchronize()
+        return out, start.elapsed_time(end)
+
     first = run()  # warm-up
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    reps = []
-    start.record()
-    for _ in range(LM_REPS):
-        reps.append(run())
-    end.record()
-    end.synchronize()
-    res, cost, trips = reps[-1]
+    reps, ms = timed(run)
     # every run of the same problem gives the same iterates and cost, bit for bit
     fields = ("T_c_w", "points", "lines_orth")
-    same = [all(torch.equal(getattr(r[0], f), getattr(first[0], f)) for f in fields)
-            and torch.equal(r[1], first[1]) and torch.equal(r[2], first[2]) for r in reps]
+
+    def same_as_first(r):
+        return (all(bits_equal(getattr(r[0], f), getattr(first[0], f)) for f in fields)
+                and bits_equal(r[1], first[1]) and bits_equal(r[2], first[2]))
+
+    same = [same_as_first(r) for r in reps]
     say(f"local BA repeat: {sum(same)}/{len(same)} lm_rounds runs bit-identical to the first "
         f"(poses, points, lines, cost, trips)")
     if not all(same):
         raise AssertionError(f"lm_rounds does not repeat: {same}")
-    ms = start.elapsed_time(end)
+    res, cost, trips = reps[-1]
+
+    # the same trips as one CUDA graph: LM_REPS replays timed, then the
+    # iterates of the last, bit for bit those of the eager runs
+    t = time.perf_counter()
+    prog = graphs.Program(run, dev)
+    capture_s = time.perf_counter() - t
+    _, gms = timed(prog)
+    gsame = same_as_first(prog.outputs)
     ips = LM_ITERS * LM_REPS / (ms / 1e3)
+    gips = LM_ITERS * LM_REPS / (gms / 1e3)
+    say(f"local BA graphed: lm_rounds replay bit-identical to the eager runs {gsame} "
+        f"(poses, points, lines, cost, trips); captured in {capture_s:.3f} s, pool "
+        f"{prog.pool_bytes() / 2**20:.3f} MiB, {prog.launches_per_replay()} kernel launches "
+        f"per replay")
+    if not gsame:
+        raise AssertionError("graphed lm_rounds departs from eager")
+
+    # the two-round bundle_adjust (LM, chi^2 gate, LM) graphed against eager
+    want = ba.bundle_adjust(prob, cam, cfg)
+    bprog = graphs.Program(lambda: ba.bundle_adjust(prob, cam, cfg), dev)
+    got = bprog()
+    bsame = (all(bits_equal(getattr(got.problem, f), getattr(want.problem, f)) for f in fields)
+             and all(bits_equal(getattr(got, f), getattr(want, f))
+                     for f in ("p_active", "l_active", "cost")))
+    say(f"local BA graphed bundle_adjust: bit-identical to eager {bsame} (poses, points, "
+        f"lines, gates, cost)")
+    if not bsame:
+        raise AssertionError("graphed bundle_adjust departs from eager")
+    del prog, bprog
+
     cost, trips = float(cost), int(trips)
-    say(f"local BA: {ips:.3f} LM iterations/s ({LM_ITERS} trips x {LM_REPS} reps, "
-        f"{ms / LM_REPS:.3f} ms per lm_rounds; f32 K={K} P={P} L={L}); cost "
-        f"{cost0:.6g} -> {cost:.6g}; {trips} trips before the early exit; on {smi}")
+    say(f"local BA: eager {ips:.3f}, graphed {gips:.3f} LM iterations/s ({LM_ITERS} trips x "
+        f"{LM_REPS} reps, {ms / LM_REPS:.3f} / {gms / LM_REPS:.3f} ms per lm_rounds; f32 K={K} "
+        f"P={P} L={L}); cost {cost0:.6g} -> {cost:.6g}; {trips} trips before the early exit; "
+        f"on {smi}")
     if not (np.isfinite(cost) and cost < 1e-3 * cost0):
         raise AssertionError(f"LM did not converge: {cost0} -> {cost}")
     if not torch.isfinite(res.T_c_w).all():
         raise AssertionError("LM poses are not finite")
-    return ips
+    return {"eager": ips, "graphed": gips}
 
 
 def phase_endpoint_slam(dev, scene, smi):
     """PLSLAM with endpoint lines, loop closure and the keyframe refinement
-    at phase 5's configuration."""
+    at phase 5's configuration, graphed beside eager."""
     from plslam_tpu_torch.backend.mapping import MapConfig
     from plslam_tpu_torch.config import PLSLAMConfig
-    from plslam_tpu_torch.core.camera import StereoCamera
-    from plslam_tpu_torch.io import ate_rmse, circular_trajectory
-    from plslam_tpu_torch.pipeline import PLSLAM
 
-    cam = StereoCamera.create(scene.fx, scene.fy, scene.cx, scene.cy, scene.b,
-                              width=scene.width, height=scene.height)
-    poses = circular_trajectory(SLAM_WARMUP + SLAM_FRAMES, step_t=0.05)
-    frames = [tuple(torch.from_numpy(x).to(dev) for x in scene.render_stereo(T, noise=1.0))
-              for T in poses]
-    torch.cuda.synchronize()
-    wrappers = _wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
+    cam, poses, frames = slam_frames(dev, scene)
     cfg = PLSLAMConfig(orb_nfeatures=1200, lsd_nfeatures=256, min_entropy_ratio=0.99,
                        use_line_plucker=False, use_loop_closure=True, has_refinement=True,
                        vocabulary_p=os.path.join(CONFIGS, "vocab_orb_k10L3.yml.gz"),
                        vocabulary_l=os.path.join(CONFIGS, "vocab_lbd_k10L3.yml.gz"))
-    slam = PLSLAM(cam, cfg, MapConfig(local_ba_kf=8, ba_points=2048, ba_lines=256,
-                                      ba_pobs=8192, ba_lobs=2048, plucker_lines=False,
-                                      has_refinement=True), device=dev)
-    t0 = time.perf_counter()
-    for i in range(SLAM_WARMUP):
-        slam.process(*frames[i], timestamp=0.05 * i)
-    slam.wait_until_idle()
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    for i in range(SLAM_WARMUP, SLAM_WARMUP + SLAM_FRAMES):
-        slam.process(*frames[i], timestamp=0.05 * i)
-    slam.wait_until_idle()
-    torch.cuda.synchronize()
-    fps = SLAM_FRAMES / (time.perf_counter() - t1)
-    n_kf = len(slam.mapper.map.keyframes)
-    n_lba = slam.mapper.n_local_ba_applied
-    n_bow = len(slam.loop_closer.bow)
-    t = time.perf_counter()
-    traj = slam.finish(run_gba=True)
-    torch.cuda.synchronize()
-    gba_ms = 1e3 * (time.perf_counter() - t)
-    wall = time.perf_counter() - t0
-    by_thread = {k: fn.launches_by_thread() for k, fn in wrappers.items()}
-
-    good = [lg.good for lg in slam.logs]
-    est = np.stack([T[:3, 3] for T in traj])
-    gt = np.stack([poses[int(round(ts / 0.05))][:3, 3] for ts in slam.kf_timestamps])
-    ate = ate_rmse(est, gt, align=True)
-    say(f"endpoint slam: {fps:.3f} full-SLAM frames/s over {SLAM_FRAMES} frames "
-        f"({wall:.3f} s for all {len(frames)} frames and the GBA); {sum(good)}/{len(good)} "
-        f"frames good; {n_kf} keyframes; {n_lba} local BAs written back; {n_bow} keyframes "
-        f"BoW-encoded; {len(slam.loop_reports)} loops; GBA (finish) {gba_ms:.3f} ms on {smi}")
-    say(f"endpoint slam: keyframe ATE {ate:.6f} m (aligned; floor {EP_ATE_FLOOR:.6f}, "
-        f"JAX CPU {JAX_CPU_EP_ATE:.6f})")
-    say(f"endpoint slam launches by thread: {by_thread}")
-    if slam._map_errors:
-        raise AssertionError(f"a worker thread raised: {slam._map_errors!r}")
-    if not all(good):
-        raise AssertionError(f"frames lost tracking: {good}")
-    if n_kf < 8:
-        raise AssertionError(f"only {n_kf} keyframes")
-    if n_lba < 1:
-        raise AssertionError("no local BA was written back")
-    if n_bow != n_kf:
-        raise AssertionError(f"{n_bow} BoW records for {n_kf} keyframes")
-    if slam.loop_reports:
-        raise AssertionError(f"false loop closure: {slam.loop_reports}")
-    if not np.isfinite(np.stack(traj)).all():
-        raise AssertionError("GBA poses are not finite")
-    if not ate <= EP_ATE_FLOOR:
-        raise AssertionError(f"keyframe ATE {ate} above floor {EP_ATE_FLOOR}")
-    if by_thread["hamming_distance_matrix_cuda"].get(MAPPER_THREAD, 0) <= 0:
-        raise AssertionError("the mapping thread never launched the Hamming kernel")
-    for k in KERNEL_WRAPPERS:
-        if sum(by_thread[k].values()) <= 0:
-            raise AssertionError(f"kernel {k} never launched on the endpoint SLAM path")
-    return by_thread, fps, ate
+    mcfg = MapConfig(local_ba_kf=8, ba_points=2048, ba_lines=256, ba_pobs=8192, ba_lobs=2048,
+                     plucker_lines=False, has_refinement=True)
+    g = run_slam(dev, cam, poses, frames, cfg, mcfg, capture=True)
+    e = run_slam(dev, cam, poses, frames, cfg, mcfg, capture=False)
+    check_slam("endpoint slam", g, e, EP_ATE_FLOOR, JAX_CPU_EP_ATE, smi)
+    say(f"endpoint slam: {g['n_bow']} keyframes BoW-encoded, {len(g['slam'].loop_reports)} loops")
+    return g["by_thread"], {"graphed": g["fps"], "eager": e["fps"]}, g["ate"]
 
 
 def _ate_translation(T_est, T_true) -> float:
@@ -1285,8 +1395,10 @@ def wait_batch_render(job) -> list:
 
 def phase_batch(dev, smi, streams):
     """``BatchedVisualOdometry`` at scripts/bench_batch_vo.py's
-    configuration: the B sweep (aggregate and per-stream frames/s, every
-    frame of every stream good, the launches per frame), the per-stream ATE
+    configuration: the B sweep (the graphed step's aggregate and
+    per-stream frames/s beside the eager step's, graphed and eager results
+    bit for bit, every frame of every stream good, the launches per graphed
+    frame), the per-stream ATE
     floors at BATCH_ATE_B, a step without host sync, and at BATCH_MATCH_B
     each stream against single-stream ``VisualOdometry`` on its frames.
     functorch's per-example fallback is off: a missing batching rule raises."""
@@ -1321,42 +1433,64 @@ def phase_batch(dev, smi, streams):
             bvo = BatchedVisualOdometry(B, cam, fcfg, tcfg, device=dev)
             bvo.initialize(L[0][:B], R[0][:B])
             results = [bvo.process(L[i][:B], R[i][:B]) for i in range(1, BATCH_WARMUP + 1)]
-            torch.cuda.synchronize()
+            _sync(dev)
             before = {k: fn.launches for k, fn in wrappers.items()}
             t0 = time.perf_counter()
             for i in range(BATCH_WARMUP + 1, n_poses):
                 results.append(bvo.process(L[i][:B], R[i][:B]))
-            torch.cuda.synchronize()
+            _sync(dev)
             dt = time.perf_counter() - t0
             per_frame = {k: (fn.launches - before[k]) / BATCH_FRAMES for k, fn in wrappers.items()}
+            # the same streams eagerly (capture=False), timed the same way
+            eager = BatchedVisualOdometry(B, cam, fcfg, tcfg, device=dev, capture=False)
+            eager.initialize(L[0][:B], R[0][:B])
+            ref = [eager.process(L[i][:B], R[i][:B]) for i in range(1, BATCH_WARMUP + 1)]
+            _sync(dev)
+            t0 = time.perf_counter()
+            for i in range(BATCH_WARMUP + 1, n_poses):
+                ref.append(eager.process(L[i][:B], R[i][:B]))
+            _sync(dev)
+            dt_eager = time.perf_counter() - t0
+            same = sum(bits_equal(a.T_f_w, b.T_f_w) for a, b in zip(results, ref))
+            every = sum(results_equal(a, b) for a, b in zip(results, ref))
             good = torch.stack([r.good for r in results]).cpu().numpy()    # (frames, B)
-            agg = B * BATCH_FRAMES / dt
+            agg, agg_eager = B * BATCH_FRAMES / dt, B * BATCH_FRAMES / dt_eager
+            prog = bvo.programs()[0]
             row = dict(B=B, frames_per_s=agg, per_stream_frames_per_s=agg / B,
-                       launches_per_frame=per_frame, good=int(good.sum()), frames=good.size)
+                       eager_frames_per_s=agg_eager, launches_per_frame=per_frame,
+                       good=int(good.sum()), frames=good.size,
+                       pool_mib=prog.pool_bytes() / 2**20)
             row["per_stream_vs_single"] = row["per_stream_frames_per_s"] / rows.get(
                 BATCH_SIZES[0], row)["per_stream_frames_per_s"]
             rows[B] = row
-            say(f"batch B={B}: {agg:.3f} aggregate frames/s, {agg / B:.3f} per stream "
-                f"(per_stream_vs_single {row['per_stream_vs_single']:.3f}) over {BATCH_FRAMES} "
-                f"timed frames; {int(good.sum())}/{good.size} stream-frames good; launches per "
-                f"frame {per_frame} on {smi}")
+            say(f"batch B={B}: graphed {agg:.3f} aggregate frames/s, {agg / B:.3f} per stream "
+                f"(per_stream_vs_single {row['per_stream_vs_single']:.3f}), eager "
+                f"{agg_eager:.3f} aggregate frames/s, over {BATCH_FRAMES} timed frames; "
+                f"{int(good.sum())}/{good.size} stream-frames good; launches per graphed frame "
+                f"{per_frame}; graphed vs eager T_f_w bit-identical on {same}/{len(results)} "
+                f"frames, every result field on {every}; graph pool {row['pool_mib']:.3f} MiB "
+                f"on {smi}")
             if not good.all():
                 raise AssertionError(f"B={B}: frames lost tracking (frame, stream): "
                                      f"{np.argwhere(~good).tolist()}")
+            if same != len(results):
+                raise AssertionError(f"B={B}: the graphed batched step departs from the eager "
+                                     f"one on {len(results) - same} frames")
             for k in KERNEL_WRAPPERS:
-                if per_frame[k] != BATCH_LAUNCHES[k]:
+                if per_frame[k] != FRAME_LAUNCHES[k]:
                     raise AssertionError(f"B={B}: {k} launched {per_frame[k]} times per frame, "
-                                         f"want {BATCH_LAUNCHES[k]} at every B")
+                                         f"want {FRAME_LAUNCHES[k]} at every B")
             if B == BATCH_ATE_B:
-                # the batched step keeps its state on the card: one more step
-                # (repeating the last frame) under sync-debug "error"
+                # the graphed batched step keeps its state on the card: one
+                # more step (repeating the last frame) under sync-debug "error"
                 torch.cuda.set_sync_debug_mode("error")
                 bvo.process(L[-1][:B], R[-1][:B])
                 torch.cuda.set_sync_debug_mode(0)
-                say(f"batch B={B}: a step made no host sync (sync debug mode 'error')")
+                say(f"batch B={B}: a graphed step made no host sync (sync debug mode 'error')")
                 kept["ate"] = results
             if B == BATCH_MATCH_B:
                 kept["match"] = results
+            del bvo, eager, prog
         launches = {k: fn.launches for k, fn in wrappers.items()}
     finally:
         torch.cuda.set_sync_debug_mode(0)
@@ -1764,16 +1898,19 @@ def run_dist(dev, smi, streams, cfg):
     seq = make_mesh("seq", dev.type)
 
     def track(sharding):
-        """The gathered results, and the launches counted after initialize."""
+        """The gathered results, and the launches counted after the first
+        frame (whose ``process`` captures the step: warm-up calls included)."""
         bvo = BatchedVisualOdometry(B, bcam, fcfg, tcfg, device=dev, sharding=sharding)
         bvo.initialize(L[0], R[0])
-        at_init = {k: fn.launches for k, fn in wrappers.items()}
-        return [bvo.gather_result(bvo.process(L[i], R[i])) for i in range(1, F + 1)], at_init
+        out = [bvo.gather_result(bvo.process(L[1], R[1]))]
+        first = {k: fn.launches for k, fn in wrappers.items()}
+        out += [bvo.gather_result(bvo.process(L[i], R[i])) for i in range(2, F + 1)]
+        return out, first
 
     _sync(dev)
     for fn in wrappers.values():
         fn.launches = 0
-    (sharded, at_init), ms["dist_batch_vo"] = _timed(dev, lambda: track(seq))
+    (sharded, first), ms["dist_batch_vo"] = _timed(dev, lambda: track(seq))
     bvo_launches = {k: fn.launches for k, fn in wrappers.items()}
     # the unsharded batch on rank 0, then sharded again: the order's share of the times
     plain = None
@@ -1801,10 +1938,10 @@ def run_dist(dev, smi, streams, cfg):
     if not (repeat and bool(good.all())):
         raise AssertionError(f"sharded batch VO: repeat {repeat}, good {good.tolist()}")
     for k in kernels:
-        per_frame = (bvo_launches[k] - at_init[k]) / F
-        if per_frame != BATCH_LAUNCHES[k]:
+        per_frame = (bvo_launches[k] - first[k]) / (F - 1)
+        if per_frame != FRAME_LAUNCHES[k]:
             raise AssertionError(f"sharded batch VO launched {k} {per_frame} times per frame, "
-                                 f"want {BATCH_LAUNCHES[k]}")
+                                 f"want {FRAME_LAUNCHES[k]}")
     for k in launches:
         launches[k] += bvo_launches[k]
     note(f"dist: phase 11 took {time.perf_counter() - t_phase:.3f} s on {smi}")
@@ -2042,6 +2179,17 @@ def phase_eval(dev, smi, frames):
     return launches, summary
 
 
+def say_graphs(after: str, smi: str) -> None:
+    """The process's CUDA graphs so far: captures, replays, the graphs
+    still alive once garbage is collected and their pools' bytes."""
+    from plslam_tpu_torch import graphs
+
+    gc.collect()
+    st = graphs.stats()
+    say(f"graphs after {after}: {st['captures']} captured, {st['replays']} replays, "
+        f"{st['live']} alive holding {st['pool_bytes'] / 2**20:.3f} MiB of pools on {smi}")
+
+
 def assert_no_jax() -> None:
     """The port imports nothing of JAX or of the JAX package."""
     bad = sorted(k for k in sys.modules if k.split(".")[0] in ("jax", "jaxlib", "plslam_tpu"))
@@ -2122,16 +2270,22 @@ def run_phases(args, dev, smi, kind, fixture, writer, render=None, eval_render=N
         assert_no_jax()
         say(json.dumps({"kernels": report}))
         return 0
-    launches, fps, ate = phase_main_path(dev, scene, poses, frames)
+    launches, fps, ate, vo_prof = phase_main_path(dev, scene, poses, frames, smi)
+    say_graphs("main path", smi)
     slam_launches, slam_fps, slam_ate = phase_slam(dev, scene, smi)
+    say_graphs("slam", smi)
     lm_ips = phase_local_ba(dev, smi)
     ep_launches, ep_fps, ep_ate = phase_endpoint_slam(dev, scene, smi)
+    say_graphs("endpoint slam", smi)
     loop_launches, loop_kf_s = phase_loop_closure(dev, smi)
     disk_launches, disk_fps, disk_ate, remap_us = phase_disk(dev, smi, fixture)
+    say_graphs("disk", smi)
     batch_launches, batch_rows, batch_ates = phase_batch(dev, smi, streams)
+    say_graphs("batch", smi)
     rgbd_launches, rgbd_err = phase_rgbd(dev, smi)
     dist_launches, dist_ms = phase_dist(dev, smi, streams)
     eval_launches, ev = phase_eval(dev, smi, eval_frames)
+    say_graphs("eval", smi)
     for k in report:
         by_thread = {"slam": slam_launches[k["name"]], "slam_endpoint": ep_launches[k["name"]],
                      "loop": loop_launches[k["name"]], "disk": disk_launches[k["name"]],
@@ -2142,15 +2296,20 @@ def run_phases(args, dev, smi, kind, fixture, writer, render=None, eval_render=N
                          + sum(sum(v.values()) for v in by_thread.values()))
         k["launches_by_path"] = by_path
     assert_no_jax()
-    say(f"main path: {fps:.3f} frames/s, ATE {ate:.6f} m on {smi}")
-    say(f"slam path: {slam_fps:.3f} frames/s, keyframe ATE {slam_ate:.6f} m; local BA "
-        f"{lm_ips:.3f} LM iterations/s on {smi}")
-    say(f"endpoint slam path: {ep_fps:.3f} frames/s, keyframe ATE {ep_ate:.6f} m; loop "
-        f"replay {loop_kf_s:.3f} keyframes/s on {smi}")
+    say(f"main path: graphed {fps['graphed']:.3f}, eager {fps['eager']:.3f} frames/s (median "
+        f"window), ATE {ate:.6f} m; device busy graphed {100 * vo_prof['graphed']['busy_share']:.2f}%"
+        f", eager {100 * vo_prof['eager']['busy_share']:.2f}% on {smi}")
+    say(f"slam path: graphed {slam_fps['graphed']:.3f}, eager {slam_fps['eager']:.3f} frames/s, "
+        f"keyframe ATE {slam_ate:.6f} m; local BA graphed {lm_ips['graphed']:.3f}, eager "
+        f"{lm_ips['eager']:.3f} LM iterations/s on {smi}")
+    say(f"endpoint slam path: graphed {ep_fps['graphed']:.3f}, eager {ep_fps['eager']:.3f} "
+        f"frames/s, keyframe ATE {ep_ate:.6f} m; loop replay {loop_kf_s:.3f} keyframes/s on "
+        f"{smi}")
     say(f"disk path: {disk_fps:.3f} CLI frames/s, keyframe ATE {disk_ate:.6f} m; device remap "
         f"{remap_us:.3f} us per pair on {smi}")
-    fps_by_b = {B: round(r["frames_per_s"], 3) for B, r in batch_rows.items()}
-    say(f"batch path: aggregate frames/s by B {fps_by_b}, B={BATCH_ATE_B} ATEs "
+    fps_by_b = {B: (round(r["frames_per_s"], 3), round(r["eager_frames_per_s"], 3))
+                for B, r in batch_rows.items()}
+    say(f"batch path: aggregate frames/s (graphed, eager) by B {fps_by_b}, B={BATCH_ATE_B} ATEs "
         f"{[round(a, 6) for a in batch_ates]} m; RGB-D track error {rgbd_err:.6f} m on {smi}")
     dist_rounded = {k: round(v, 3) for k, v in dist_ms.items()}
     say(f"dist path (world 1): program ms {json.dumps(dist_rounded)} on {smi}")

@@ -25,11 +25,13 @@ import functools
 import logging
 import threading
 from dataclasses import dataclass
+from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .. import graphs
 from ..core import lie
 from ..core.camera import StereoCamera
 from ..core.plucker import (normalize_plucker, orth_to_plucker, plucker_to_orth,
@@ -703,12 +705,108 @@ def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[torch.clamp(idx, min=0).long()]
 
 
+# local-BA programs kept per MapHandler (capacity buckets, LRU)
+BA_GRAPH_BUCKETS = 4
+
+
+class LocalBAProgram:
+    """One capacity bucket's local BA as one program over static buffers
+    (``plslam_tpu.backend.ba.bundle_adjust_packed``: 3 uploads, 1 fetch):
+    the problem's fields packed by dtype into one host staging buffer each
+    (pinned on the card: floats, int64 indices, bools, and a fourth for a
+    Plücker table of another float type), their uploads into the static
+    device buffers that the ``BAProblem`` fields view, the segment plans
+    built from those index buffers, ``ba.bundle_adjust`` (both LM rounds
+    and the chi^2 gate), the Plücker output and the packed result.  A
+    call fills the staging buffers (after the previous replay's upload has
+    read them), replays, and returns a copy of the result."""
+
+    def __init__(self, mapper: "MapHandler", prob: ba_mod.BAProblem, meta):
+        self.cam, self.ba_cfg = mapper.cam, mapper.ba_cfg
+        dev = mapper.device
+        pinned = dev.type == "cuda"
+        self.slots = {}   # field -> (dtype, offset, shape)
+        sizes: dict = {}
+        for name, a in self._arrays(prob, meta):
+            dt = self._dtype(a)
+            self.slots[name] = (dt, sizes.get(dt, 0), a.shape)
+            sizes[dt] = sizes.get(dt, 0) + a.size
+        self.host = {dt: torch.empty(n, dtype=dt, pin_memory=pinned) for dt, n in sizes.items()}
+        self.host_np = {dt: h.numpy() for dt, h in self.host.items()}
+        self.dev = {dt: torch.empty(n, dtype=dt, device=dev) for dt, n in sizes.items()}
+        self._done = None
+        # the capture's warm-up solves read the staging buffers: this
+        # problem, not what a reused pinned block held (indices out of range)
+        self._fill(prob, meta)
+        self.program = graphs.Program(self._solve, dev, capture=mapper.capture)
+
+    @staticmethod
+    def _arrays(prob, meta):
+        out = [(k, np.asarray(getattr(prob, k))) for k in ba_mod.BAProblem._fields
+               if getattr(prob, k) is not None]
+        if meta["lines_plucker"] is not None:
+            out.append(("lines_plucker", np.asarray(meta["lines_plucker"])))
+        return out
+
+    @staticmethod
+    def _dtype(a: np.ndarray) -> torch.dtype:
+        # index fields are int64 on the device (convert.ba_problem_from_numpy)
+        return torch.int64 if a.dtype.kind in "iu" else torch.from_numpy(np.zeros(0, a.dtype)).dtype
+
+    @staticmethod
+    def key(prob, meta) -> tuple:
+        """The bucket: every field's name, shape and dtype."""
+        return tuple((k, a.shape, a.dtype.str) for k, a in LocalBAProgram._arrays(prob, meta))
+
+    def _view(self, name: str) -> torch.Tensor:
+        dt, off, shape = self.slots[name]
+        return self.dev[dt][off:off + int(np.prod(shape))].view(shape)
+
+    def _solve(self) -> torch.Tensor:
+        for dt, d in self.dev.items():
+            d.copy_(self.host[dt], non_blocking=True)
+        dp = ba_mod.BAProblem(**{k: self._view(k) if k in self.slots else None
+                                 for k in ba_mod.BAProblem._fields})
+        if "lines_plucker" in self.slots:
+            Lw = self._view("lines_plucker")
+            scale = torch.linalg.norm(Lw, dim=-1)
+            dp = dp._replace(lines_scale=scale, lines_orth=plucker_to_orth(
+                Lw / torch.clamp(scale, min=1e-12)[:, None]))
+        res = ba_mod.bundle_adjust(dp, self.cam, self.ba_cfg)
+        # the optimizer's 6-vector scale cancels in the ||d|| normalization
+        Lo = orth_to_plucker(res.problem.lines_orth)
+        Lo = Lo / torch.clamp(torch.linalg.norm(Lo[:, 3:], dim=-1), min=1e-12)[:, None]
+        f32 = torch.float32
+        return torch.cat([res.problem.T_c_w.reshape(-1), res.problem.points.reshape(-1),
+                          Lo.reshape(-1), res.p_active.to(f32), res.l_active.to(f32),
+                          res.cost.to(f32)[None]])
+
+    def wait(self) -> None:
+        """Block until the last replay has run."""
+        if self._done is not None:
+            self._done.synchronize()
+
+    def _fill(self, prob, meta) -> None:
+        for name, a in self._arrays(prob, meta):
+            dt, off, _ = self.slots[name]
+            self.host_np[dt][off:off + a.size] = a.reshape(-1)
+
+    def __call__(self, prob, meta) -> torch.Tensor:
+        self.wait()  # the staging buffers are the last replay's upload source
+        self._fill(prob, meta)
+        out = self.program().clone()
+        if self.program.device.type == "cuda":
+            self._done = torch.cuda.Event()
+            self._done.record()
+        return out
+
+
 class MapHandler:
     """Host orchestrator of keyframe insertion, local and global BA."""
 
     def __init__(self, cam: StereoCamera, cfg: MapConfig = MapConfig(),
                  ba_cfg: Optional[ba_mod.BAConfig] = None, tracker_cfg=None, *,
-                 device):
+                 device, capture: bool = True):
         self.cam = cam
         self.cfg = cfg
         self.ba_cfg = ba_cfg or ba_mod.BAConfig()
@@ -724,6 +822,12 @@ class MapHandler:
         # worker and outside callers; reentrant (add_keyframe -> flush_ba)
         self._map_lock = threading.RLock()
         self.n_local_ba_applied = 0   # local-BA results written back
+        # the local BA's captured programs, one per capacity bucket (LRU,
+        # most recent last); capture=False runs them eagerly
+        self.capture = capture
+        self.ba_graph_buckets = BA_GRAPH_BUCKETS
+        self._ba_programs: OrderedDict = OrderedDict()
+        self.ba_graph_counts = {"built": 0, "evicted": 0}
 
     # -- device association (the JAX package's fused programs) -------------
 
@@ -1478,25 +1582,37 @@ class MapHandler:
     def _solve_local(self, prob: ba_mod.BAProblem, meta):
         """Run the two-round BA on the device; return one f32 buffer
         [T_c_w | points | lines as ||d||=1 Pluecker | p_active | l_active |
-        cost] and its layout."""
-        dp = ba_problem_from_numpy(prob, self.device)
-        lp = meta["lines_plucker"]
-        if lp is not None:
-            Lw = _upload(lp, self.device)
-            scale = torch.linalg.norm(Lw, dim=-1)
-            dp = dp._replace(lines_scale=scale, lines_orth=plucker_to_orth(
-                Lw / torch.clamp(scale, min=1e-12)[:, None]))
-        res = ba_mod.bundle_adjust(dp, self.cam, self.ba_cfg)
-        # the optimizer's 6-vector scale cancels in the ||d|| normalization
-        Lo = orth_to_plucker(res.problem.lines_orth)
-        Lo = Lo / torch.clamp(torch.linalg.norm(Lo[:, 3:], dim=-1), min=1e-12)[:, None]
-        f32 = torch.float32
-        out = torch.cat([res.problem.T_c_w.reshape(-1), res.problem.points.reshape(-1),
-                         Lo.reshape(-1), res.p_active.to(f32), res.l_active.to(f32),
-                         res.cost.to(f32)[None]])
+        cost] and its layout.  One replay of the capacity bucket's program
+        (``LocalBAProgram``), captured on the bucket's first solve; an LRU
+        keeps ``ba_graph_buckets`` of them.  The buffer is a copy: a later
+        replay of the bucket leaves it as it is."""
+        key = LocalBAProgram.key(prob, meta)
+        with self._ba_lock:
+            prog = self._ba_programs.pop(key, None)
+        if prog is None:
+            prog = LocalBAProgram(self, prob, meta)
+            self.ba_graph_counts["built"] += 1
+        with self._ba_lock:
+            self._ba_programs[key] = prog
+            evicted = []
+            while len(self._ba_programs) > self.ba_graph_buckets:
+                evicted.append(self._ba_programs.popitem(last=False)[1])
+                self.ba_graph_counts["evicted"] += 1
+        for old in evicted:
+            old.wait()  # its last replay ends before its pool is given back
+        out = prog(prob, meta)
         lay = (prob.T_c_w.shape[0], prob.points.shape[0], prob.lines_orth.shape[0],
                prob.p_cam.shape[0], prob.l_cam.shape[0])
         return out, lay
+
+    def ba_graph_stats(self) -> dict:
+        """Local-BA programs: built and evicted since start-up, the buckets
+        held and the bytes of their graphs' pools."""
+        with self._ba_lock:
+            progs = list(self._ba_programs.values())
+        return {**self.ba_graph_counts, "buckets": len(progs),
+                "captured": sum(p.program.captured for p in progs),
+                "pool_bytes": sum(p.program.pool_bytes() for p in progs)}
 
     @_locked
     def local_bundle_adjustment(self, defer: bool = False):

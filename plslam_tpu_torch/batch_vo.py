@@ -42,7 +42,8 @@ from .frontend.features import StereoFeatures
 from .frontend.frame import (FrontendConfig, _detect_describe_lines_batch,
                              _detect_describe_points_batch)
 from .frontend.tracker import TrackerConfig
-from .vo import FrameResult, VOParams, VOState, match_and_track, match_stereo
+from .vo import (FrameResult, GraphedStep, VOParams, VOState, match_and_track,
+                 match_stereo)
 
 
 def _unflatten(tree, B: int):
@@ -53,17 +54,20 @@ def _unflatten(tree, B: int):
     return type(tree)(*out) if hasattr(tree, "_fields") else tuple(out)
 
 
-class BatchedVisualOdometry:
+class BatchedVisualOdometry(GraphedStep):
     """Track ``batch`` stereo streams in lockstep.  ``process`` takes (B, H,
     W) left and right images and returns a ``FrameResult`` whose fields
     carry a leading (B,) axis: this rank's (B / world,) block when
     ``sharding`` is a 1-D ``DeviceMesh`` (its device type that of
-    ``device``)."""
+    ``device``).  As ``VisualOdometry``, ``process`` is one replay of the
+    captured step (detection and the vmapped step) over static buffers,
+    one program per image shape; ``capture=False`` runs it eagerly."""
 
     def __init__(self, batch: int, cam: StereoCamera, fcfg: FrontendConfig = FrontendConfig(),
                  tcfg: TrackerConfig = TrackerConfig(), *, device="cuda",
                  dtype=torch.float32, adaptative_fast: bool = True,
-                 use_motion_model: bool = False, sharding: Optional[DeviceMesh] = None):
+                 use_motion_model: bool = False, sharding: Optional[DeviceMesh] = None,
+                 capture: bool = True):
         self.device = torch.device(device)
         self.sharding = sharding
         # batch: the streams of a frame; B, offset: this rank's block of them
@@ -89,20 +93,24 @@ class BatchedVisualOdometry:
         self._match = torch.func.vmap(functools.partial(match_stereo, cam=cam, fcfg=fcfg))
         self._step = torch.func.vmap(functools.partial(
             match_and_track, cam=cam, fcfg=fcfg, tcfg=tcfg, prm=self.params))
-        self.state: Optional[VOState] = None
+        self._init_graphs(capture)
 
-    def _stack(self, img_l: torch.Tensor, img_r: torch.Tensor) -> torch.Tensor:
-        """(B, H, W) left and right -> the flat (2 B_local, H, W) f32 stack
-        of this rank's streams."""
+    def _check(self, img_l: torch.Tensor, img_r: torch.Tensor) -> tuple:
         if not (on_device(img_l, self.device) and on_device(img_r, self.device)):
             raise ValueError(f"images must be on {self.device}, got "
                              f"{img_l.device}, {img_r.device}")
-        if img_l.shape[0] != self.batch or img_r.shape != img_l.shape:
+        if img_l.dim() != 3 or img_l.shape[0] != self.batch or img_r.shape != img_l.shape:
             raise ValueError(f"want two ({self.batch}, H, W) stacks, got "
                              f"{tuple(img_l.shape)}, {tuple(img_r.shape)}")
+        return tuple(img_l.shape[1:])
+
+    def _fill(self, flat: torch.Tensor, img_l: torch.Tensor, img_r: torch.Tensor) -> None:
+        """This rank's streams of the (B, H, W) stacks into the flat (2
+        B_local, H, W) f32 buffer, stream b's pair at 2b and 2b + 1."""
         mine = slice(self.offset, self.offset + self.B)
-        imgs = torch.stack([img_l[mine], img_r[mine]], dim=1).to(torch.float32)
-        return imgs.reshape((2 * self.B,) + imgs.shape[2:])
+        pairs = flat.view((self.B, 2) + flat.shape[1:])
+        pairs[:, 0].copy_(img_l[mine])
+        pairs[:, 1].copy_(img_r[mine])
 
     def _detect(self, flat: torch.Tensor, fast_th: torch.Tensor):
         """One detection call per kind on the flat stack, reshaped to (B, 2, ...)."""
@@ -114,7 +122,8 @@ class BatchedVisualOdometry:
         """The first frames of every stream; returns their (B,)-leading
         features."""
         B, dev, dt = self.B, self.device, self.dtype
-        flat = self._stack(img_l, img_r)
+        flat = self._image_buffer(self._check(img_l, img_r))
+        self._fill(flat, img_l, img_r)
         th = torch.full((B,), self.fcfg.fast_th, dtype=torch.float32, device=dev)
         feats = self._match(*self._detect(flat, th))
         I = torch.eye(4, dtype=dt, device=dev).expand(B, 4, 4).clone()
@@ -129,13 +138,17 @@ class BatchedVisualOdometry:
             prev_good=torch.zeros((B,), dtype=torch.bool, device=dev))
         return feats
 
+    def _image_buffer(self, hw: tuple) -> torch.Tensor:
+        return torch.zeros((2 * self.B,) + hw, dtype=torch.float32, device=self.device)
+
+    def _advance(self, flat: torch.Tensor, state: VOState):
+        kp_pair, seg_pair = self._detect(flat, state.fast_th)
+        return self._step(kp_pair, seg_pair, state)
+
     def process(self, img_l: torch.Tensor, img_r: torch.Tensor) -> FrameResult:
-        """One tracking step of every stream."""
-        if self.state is None:
-            raise RuntimeError("call initialize() first")
-        kp_pair, seg_pair = self._detect(self._stack(img_l, img_r), self.state.fast_th)
-        res, self.state = self._step(kp_pair, seg_pair, self.state)
-        return res
+        """One tracking step of every stream: one replay."""
+        hw = self._check(img_l, img_r)
+        return self._replay(hw, lambda flat: self._fill(flat, img_l, img_r))
 
     def gather_result(self, res: FrameResult) -> FrameResult:
         """The (B,) result of every rank's (B_local,) block, on every rank
@@ -156,8 +169,8 @@ class BatchedVisualOdometry:
 
     def mark_keyframe(self, mask) -> None:
         """Reset the keyframe statistics of the streams where ``mask`` (B,)
-        is true."""
-        st = self.state
+        is true, in the static state."""
+        st = self._state
         m = torch.as_tensor(mask, dtype=torch.bool, device=self.device)
         if m.shape != (self.batch,):
             raise ValueError(f"mark_keyframe: want a ({self.batch},) mask, got {tuple(m.shape)}")
@@ -166,8 +179,8 @@ class BatchedVisualOdometry:
         def sel(new, old):
             return torch.where(m.reshape((-1,) + (1,) * (old.dim() - 1)), new, old)
 
-        self.state = st._replace(
-            T_prevKF=sel(st.T_f_w, st.T_prevKF),
-            cov_prevKF_accum=sel(torch.zeros_like(st.cov_prevKF_accum), st.cov_prevKF_accum),
-            frames_since_kf=sel(torch.zeros_like(st.frames_since_kf), st.frames_since_kf),
-            prev_was_kf=sel(torch.ones_like(st.prev_was_kf), st.prev_was_kf))
+        st.T_prevKF.copy_(sel(st.T_f_w, st.T_prevKF))
+        st.cov_prevKF_accum.copy_(sel(torch.zeros_like(st.cov_prevKF_accum),
+                                      st.cov_prevKF_accum))
+        st.frames_since_kf.copy_(sel(torch.zeros_like(st.frames_since_kf), st.frames_since_kf))
+        st.prev_was_kf.copy_(sel(torch.ones_like(st.prev_was_kf), st.prev_was_kf))

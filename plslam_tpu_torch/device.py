@@ -6,6 +6,12 @@ TPU's default bf16 passes cost the tracker sub-pixel accuracy and stalled
 the BA.  The H100 analogue is TF32: cuDNN convolutions (the blur and Sobel
 filters) default to it.  Importing this module turns TF32 off for both
 matmuls and convolutions, for the whole process.
+
+It also pins linear algebra on the card to cuSOLVER.  With the default
+choice a batched ``cholesky_solve`` (the vmapped GN step of ``batch_vo``)
+goes to MAGMA, whose ``magma_spotrs_batched`` allocates device memory on
+every call, which a CUDA graph cannot capture; single-matrix calls and
+batched Cholesky factorizations already went to cuSOLVER.
 """
 
 from __future__ import annotations
@@ -24,9 +30,12 @@ def on_device(t: torch.Tensor, device: torch.device) -> bool:
 
 
 def set_precision_policy() -> None:
-    """Full-f32 matmuls and convolutions (no TF32)."""
+    """Full-f32 matmuls and convolutions (no TF32); cuSOLVER for linear
+    algebra on a CUDA build."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if torch.backends.cuda.is_built():
+        torch.backends.cuda.preferred_linalg_library("cusolver")
 
 
 set_precision_policy()

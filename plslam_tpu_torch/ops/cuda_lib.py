@@ -12,6 +12,7 @@ nvcc.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -141,12 +142,30 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+_recorder = threading.local()
+
+
+@contextlib.contextmanager
+def recording():
+    """While a CUDA graph is captured on this thread: a launch is recorded
+    in the yielded {wrapper: launches} tally instead of counted (a captured
+    launch does not run); ``graphs.Program`` adds the tally again at each
+    replay, where the kernels do run."""
+    tally: dict = {}
+    _recorder.tally = tally
+    try:
+        yield tally
+    finally:
+        _recorder.tally = None
+
+
 class counted:
     """Decorator for a kernel wrapper: the wrapper calls ``count()`` where
     it launches its kernel, and the launches are counted under a lock,
     keyed by the launching thread's name (the tracker and the mapping
-    worker launch the same kernels).  ``launches`` is the total; assigning
-    0 to it resets every count."""
+    worker launch the same kernels).  Under ``recording()`` the launch is
+    recorded for the graph being captured instead.  ``launches`` is the
+    total; assigning 0 to it resets every count."""
 
     def __init__(self, fn):
         functools.update_wrapper(self, fn)
@@ -157,9 +176,17 @@ class counted:
         return self.__wrapped__(*args, **kwargs)
 
     def count(self) -> None:
+        tally = getattr(_recorder, "tally", None)
+        if tally is not None:
+            tally[self] = tally.get(self, 0) + 1
+        else:
+            self.add(1)
+
+    def add(self, n: int) -> None:
+        """Count ``n`` launches on this thread (a graph replay's)."""
         name = threading.current_thread().name
         with self._lock:
-            self._by_thread[name] = self._by_thread.get(name, 0) + 1
+            self._by_thread[name] = self._by_thread.get(name, 0) + n
 
     def launches_by_thread(self) -> dict[str, int]:
         with self._lock:

@@ -64,7 +64,7 @@ class PLSLAM:
     worker fed by an unbounded keyframe-id queue."""
 
     def __init__(self, cam: StereoCamera, config: PLSLAMConfig | None = None,
-                 map_cfg: MapConfig | None = None, *, device="cuda"):
+                 map_cfg: MapConfig | None = None, *, device="cuda", capture: bool = True):
         self.config = cfg = config or PLSLAMConfig()
         if cfg.use_line_plucker and cfg.use_loop_closure:
             raise ValueError(
@@ -74,14 +74,14 @@ class PLSLAM:
         self.cam = cam
         self.device = torch.device(device)
         self.vo = VisualOdometry(cam, C.frontend(cfg, max(int(cam.width), int(cam.height))),
-                                 C.tracker(cfg), device=self.device)
+                                 C.tracker(cfg), device=self.device, capture=capture)
         mcfg = map_cfg or MapConfig(
             use_lines=cfg.has_lines, plucker_lines=cfg.use_line_plucker,
             min_lm_obs=cfg.min_lm_obs, min_lm_cov_graph=cfg.min_lm_cov_graph,
             min_kf_local_map=cfg.min_kf_local_map, has_refinement=cfg.has_refinement,
             min_pt_matches=cfg.min_pt_matches)
         self.mapper = MapHandler(cam, mcfg, C.ba(cfg), tracker_cfg=C.tracker(cfg),
-                                 device=self.device)
+                                 device=self.device, capture=capture)
         self.loop_closer = (LoopCloser(cam, self.mapper, C.loop_cfg(cfg))
                             if cfg.use_loop_closure else None)
         self.loop_reports: list[dict] = []
@@ -203,15 +203,6 @@ class PLSLAM:
 
     # -- per-frame ---------------------------------------------------------
 
-    @staticmethod
-    def _pack_frame_scalars(res) -> torch.Tensor:
-        """One (21,) f32 buffer of everything the host needs per frame."""
-        f32 = torch.float32
-        return torch.cat([
-            torch.stack([res.is_kf.to(f32), res.n_inliers.to(f32), res.err.to(f32),
-                         res.good.to(f32), res.entropy_ratio.to(f32)]),
-            res.T_f_w.reshape(-1).to(f32)])
-
     def _image(self, img) -> torch.Tensor:
         return torch.as_tensor(img, dtype=torch.float32, device=self.device)
 
@@ -220,6 +211,7 @@ class PLSLAM:
         t0 = time.time()
         il, ir = self._image(img_l), self._image(img_r)
         if not self._initialized:
+            self.vo.prewarm(il.shape)
             feats = self.vo.initialize(il, ir)
             if len(self.mapper.map.keyframes) == 0:
                 self.mapper.initialize(np.eye(4), feats)
@@ -235,9 +227,11 @@ class PLSLAM:
             self._frame_idx += 1
             return None
         every = self.config.overlay_every
+        # copies, taken on this thread's stream before the next replay
+        # changes the static features
         prev_feats = self.vo.current_features if every > 0 else None
         res = self.vo.process(il, ir)
-        sc = self._pack_frame_scalars(res).cpu().numpy()
+        sc = self.vo.frame_scalars.cpu().numpy()
         is_kf = bool(sc[0] > 0.5)
         if every > 0 and self._frame_idx % every == 0:
             self._render_overlay(il, prev_feats, res)

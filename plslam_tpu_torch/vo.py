@@ -8,16 +8,21 @@ detection on the stacked (2, H, W) pair, stereo matching, f2f association,
 the robust GN pose solve, the keyframe statistics and the adaptive FAST
 update.  All sequential state (``VOState``) stays on the device, the FAST
 threshold included, which reaches the FAST kernel as a device pointer:
-the step makes no host sync.
+the step makes no host sync.  On the card the step is one CUDA graph
+(``graphs.Program``) replayed over static image and state buffers, the
+counterpart of the JAX package's jitted ``_step``; ``step`` is the
+functional form it captures.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from typing import NamedTuple, Optional
 
 import torch
 
+from . import graphs
 from .core import lie
 from .core.camera import StereoCamera
 from .device import on_device
@@ -94,14 +99,116 @@ def fresh_state(feats: StereoFeatures, fast_th: float, dtype,
                    prev_DT=I.clone(), prev_good=scalar(False, torch.bool))
 
 
-class VisualOdometry:
+def frame_scalars(res: FrameResult) -> torch.Tensor:
+    """One (..., 21) f32 buffer of everything ``PLSLAM`` reads per
+    frame: is_kf, n_inliers, err, good, entropy_ratio, then T_f_w row-major
+    (``plslam_tpu.pipeline.PLSLAM._pack_frame_scalars``); a leading stream
+    axis for a batched result."""
+    f32 = torch.float32
+    lead = res.T_f_w.shape[:-2]
+    return torch.cat([
+        torch.stack([res.is_kf.to(f32), res.n_inliers.to(f32), res.err.to(f32),
+                     res.good.to(f32), res.entropy_ratio.to(f32)], dim=-1),
+        res.T_f_w.reshape(lead + (16,)).to(f32)], dim=-1)
+
+
+class GraphedStep:
+    """The sequential state in static buffers, updated in place by one
+    captured program per image shape (``graphs.Program``): the port's
+    counterpart of the JAX package's jitted step.  A subclass supplies
+    ``_image_buffer(hw)`` and ``_advance(imgs, state)``; ``process``
+    copies the images in, replays once and copies the packed result out.
+
+    Aliasing: JAX arrays are immutable, static buffers are not.  Nothing
+    handed out is a static buffer: a result is a view of the copy of the
+    program's packed output, and ``state``, ``current_features`` and
+    ``pose`` return copies."""
+
+    device: torch.device
+    capture: bool
+    _state: Optional[VOState]
+
+    def _init_graphs(self, capture: bool) -> None:
+        self.capture = capture
+        self._state = None
+        self._ready = False           # initialize() or a state assignment happened
+        self._programs: dict = {}     # (H, W) -> (image buffer, Program, layout box)
+        self.frame_scalars: Optional[torch.Tensor] = None
+
+    @property
+    def state(self) -> Optional[VOState]:
+        """A copy of the sequential state (the live buffers change with
+        every frame)."""
+        return None if self._state is None else graphs.tree_clone(self._state)
+
+    @state.setter
+    def state(self, st: VOState) -> None:
+        """Copy ``st`` into the static buffers (new buffers, and new
+        programs, when its shapes differ)."""
+        if self._state is not None and graphs.same_layout(self._state, st):
+            graphs.tree_copy_(self._state, st)
+        else:
+            self._state = graphs.tree_clone(st)
+            self._programs.clear()
+        self._ready = True
+
+    @property
+    def current_features(self) -> StereoFeatures:
+        return graphs.tree_clone(self._state.features)
+
+    @property
+    def pose(self) -> torch.Tensor:
+        return self._state.T_f_w.clone()
+
+    def _program(self, hw: tuple):
+        """The captured step for images of shape ``hw`` (captured on first
+        use, as a jitted function compiles).  The warm-up runs advance the
+        static state; it is put back before the program is handed out."""
+        entry = self._programs.get(hw)
+        if entry is None:
+            imgs, state, box = self._image_buffer(hw), self._state, {}
+
+            def run():
+                res, new = self._advance(imgs, state)
+                graphs.tree_copy_(state, new)
+                buf, box["layout"] = graphs.pack({**res._asdict(),
+                                                   "scalars": frame_scalars(res)})
+                return buf
+
+            saved = graphs.tree_clone(state)
+            prog = graphs.Program(run, self.device, capture=self.capture)
+            graphs.tree_copy_(state, saved)
+            entry = self._programs[hw] = (imgs, prog, box)
+        return entry
+
+    def _replay(self, hw: tuple, fill) -> FrameResult:
+        """Fill the image buffer, replay once, copy the packed output."""
+        if not self._ready:
+            raise RuntimeError("call initialize() first")
+        imgs, prog, box = self._program(hw)
+        fill(imgs)
+        out = graphs.unpack(prog().clone(), box["layout"])
+        self.frame_scalars = out.pop("scalars")
+        return FrameResult(**out)
+
+    def programs(self) -> list:
+        """The captured programs, one per image shape seen."""
+        return [p for _, p, _ in self._programs.values()]
+
+
+class VisualOdometry(GraphedStep):
     """Host-side driver; all sequential state lives on ``device`` (the
-    card unless the caller asks for the CPU)."""
+    card unless the caller asks for the CPU).
+
+    ``process`` is one replay of the captured step (``prewarm`` captures it
+    ahead of the first frame; without it the first ``process`` does),
+    ``capture=False`` runs the same function eagerly.  On the CPU the same
+    in-place function runs directly."""
 
     def __init__(self, cam: StereoCamera, fcfg: FrontendConfig = FrontendConfig(),
                  tcfg: TrackerConfig = TrackerConfig(), *, device="cuda",
                  dtype=torch.float32, adaptative_fast: bool = True,
-                 use_motion_model: bool = False, **fast_params):
+                 use_motion_model: bool = False, capture: bool = True, **fast_params):
         self.cam = cam
         self.fcfg = fcfg
         self.tcfg = tcfg
@@ -109,12 +216,19 @@ class VisualOdometry:
         self.dtype = dtype
         self.params = VOParams(adaptative_fast=adaptative_fast,
                                use_motion_model=use_motion_model, **fast_params)
-        self.state: Optional[VOState] = None
+        self._init_graphs(capture)
 
-    def _stack(self, img_l: torch.Tensor, img_r: torch.Tensor) -> torch.Tensor:
+    def _check(self, img_l: torch.Tensor, img_r: torch.Tensor) -> tuple:
         if not (on_device(img_l, self.device) and on_device(img_r, self.device)):
             raise ValueError(f"images must be on {self.device}, got "
                              f"{img_l.device}, {img_r.device}")
+        if img_l.dim() != 2 or img_r.shape != img_l.shape:
+            raise ValueError(f"want two (H, W) images, got {tuple(img_l.shape)}, "
+                             f"{tuple(img_r.shape)}")
+        return tuple(img_l.shape)
+
+    def _stack(self, img_l: torch.Tensor, img_r: torch.Tensor) -> torch.Tensor:
+        self._check(img_l, img_r)
         return torch.stack([img_l, img_r]).to(torch.float32)
 
     def _extract(self, imgs: torch.Tensor, fast_th) -> StereoFeatures:
@@ -124,34 +238,55 @@ class VisualOdometry:
         return match_stereo(kp_pair, seg_pair, cam=self.cam, fcfg=self.fcfg)
 
     def initialize(self, img_l: torch.Tensor, img_r: torch.Tensor) -> StereoFeatures:
+        """The first frame: its features start a fresh state (every field
+        of the static state is set)."""
         feats = self._extract(self._stack(img_l, img_r), self.fcfg.fast_th)
         self.state = fresh_state(feats, self.fcfg.fast_th, self.dtype, self.device)
         return feats
 
+    def prewarm(self, img_shape, img_dtype=torch.float32, progress=None) -> None:
+        """Capture the per-frame step for (H, W) images of ``img_dtype``
+        before the first frame (``plslam_tpu.vo.VisualOdometry.prewarm``).
+        Without a state yet, the static one is allocated from the features
+        of a black pair; ``initialize`` then sets every field of it.
+        ``progress`` is fed one-line status strings."""
+        say = progress or (lambda s: None)
+        hw = tuple(img_shape[-2:])
+        if self._state is None:
+            black = torch.zeros((2,) + hw, dtype=img_dtype, device=self.device)
+            feats = self._extract(black.to(torch.float32), self.fcfg.fast_th)
+            self._state = fresh_state(feats, self.fcfg.fast_th, self.dtype, self.device)
+        t0 = time.perf_counter()
+        prog = self._program(hw)[1]
+        say(f"{'captured' if prog.captured else 'ready (eager)'}: frame step "
+            f"(detect+match+track) for {hw[0]}x{hw[1]} in {time.perf_counter() - t0:.3f} s")
+
+    def _image_buffer(self, hw: tuple) -> torch.Tensor:
+        return torch.zeros((2,) + hw, dtype=torch.float32, device=self.device)
+
+    def _advance(self, imgs: torch.Tensor, state: VOState):
+        return step(imgs, state, self.cam, self.fcfg, self.tcfg, self.params)
+
     def process(self, img_l: torch.Tensor, img_r: torch.Tensor) -> FrameResult:
-        """Track one new stereo pair.  Call ``mark_keyframe()`` afterwards if
-        the mapping layer accepted the keyframe."""
-        if self.state is None:
-            raise RuntimeError("call initialize() first")
-        res, self.state = step(self._stack(img_l, img_r), self.state, self.cam,
-                               self.fcfg, self.tcfg, self.params)
-        return res
+        """Track one new stereo pair: one replay of the captured step, no
+        host sync.  Call ``mark_keyframe()`` afterwards if the mapping
+        layer accepted the keyframe."""
+        hw = self._check(img_l, img_r)
+
+        def fill(imgs):
+            imgs[0].copy_(img_l)
+            imgs[1].copy_(img_r)
+
+        return self._replay(hw, fill)
 
     def mark_keyframe(self):
-        """Reset the keyframe statistics after the mapper inserts a keyframe."""
-        st = self.state
-        self.state = st._replace(
-            T_prevKF=st.T_f_w, cov_prevKF_accum=torch.zeros_like(st.cov_prevKF_accum),
-            frames_since_kf=torch.zeros_like(st.frames_since_kf),
-            prev_was_kf=torch.ones_like(st.prev_was_kf))
-
-    @property
-    def current_features(self) -> StereoFeatures:
-        return self.state.features
-
-    @property
-    def pose(self) -> torch.Tensor:
-        return self.state.T_f_w
+        """Reset the keyframe statistics after the mapper inserts a
+        keyframe, in the static state."""
+        st = self._state
+        st.T_prevKF.copy_(st.T_f_w)
+        st.cov_prevKF_accum.zero_()
+        st.frames_since_kf.zero_()
+        st.prev_was_kf.fill_(True)
 
 
 def step(imgs: torch.Tensor, state: VOState, cam: StereoCamera,

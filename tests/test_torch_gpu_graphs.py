@@ -1,0 +1,160 @@
+"""The captured per-frame programs on the card (``plslam_tpu_torch.graphs``):
+graphed and eager (``capture=False``) VO, batched VO and local BA bit for
+bit, the launch accounting of replays, and a capture that fails raising
+instead of running eagerly.
+
+Marked ``gpu``; each test skips when no CUDA device is present.  On a
+machine with one (``--noconftest``: its tests/conftest.py imports jax):
+    python -m pytest -m gpu --noconftest tests/test_torch_gpu_graphs.py
+"""
+
+import importlib.util
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from plslam_tpu_torch import graphs
+from plslam_tpu_torch.backend.mapping import MapConfig, MapHandler
+from plslam_tpu_torch.batch_vo import BatchedVisualOdometry
+from plslam_tpu_torch.core.camera import StereoCamera
+from plslam_tpu_torch.frontend.frame import FrontendConfig
+from plslam_tpu_torch.frontend.tracker import TrackerConfig
+from plslam_tpu_torch.io import SyntheticScene, circular_trajectory
+from plslam_tpu_torch.ops import cuda_hamming
+from plslam_tpu_torch.vo import VisualOdometry
+
+pytestmark = pytest.mark.gpu
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+SPEC = importlib.util.spec_from_file_location("chip_smoke", os.path.join(ROOT, "chip_smoke.py"))
+chip_smoke = importlib.util.module_from_spec(SPEC)
+SPEC.loader.exec_module(chip_smoke)
+
+FCFG = FrontendConfig(n_points=1200, n_lines=256)
+N_FRAMES = 6
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: CUDA graphs run only on the card")
+    return torch.device("cuda:0")
+
+
+def _scene_frames(dev, seed=0, n=N_FRAMES):
+    scene = SyntheticScene(n_points=600, n_lines=60, seed=seed, width=752, height=480,
+                           fx=435.2, fy=435.2, cx=367.4, cy=252.2)
+    frames = [tuple(torch.from_numpy(x).to(dev) for x in scene.render_stereo(T, noise=1.0))
+              for T in circular_trajectory(n, step_t=0.05)]
+    cam = StereoCamera.create(scene.fx, scene.fy, scene.cx, scene.cy, scene.b,
+                              width=scene.width, height=scene.height)
+    return cam, frames
+
+
+def test_graphed_vo_equals_eager(dev):
+    """Every field of every frame's result, across a mark_keyframe, and the
+    state after the last frame; one capture, one replay per frame."""
+    cam, frames = _scene_frames(dev)
+    runs = []
+    for capture in (True, False):
+        vo = VisualOdometry(cam, FCFG, TrackerConfig(), device=dev, capture=capture)
+        vo.initialize(*frames[0])
+        out = []
+        for i in range(1, N_FRAMES):
+            out.append(vo.process(*frames[i]))
+            if i == 2:
+                vo.mark_keyframe()
+        runs.append((vo, out))
+    (g, gres), (e, eres) = runs
+    assert g.programs()[0].captured and not e.programs()[0].captured
+    assert g.programs()[0].replays == N_FRAMES - 1
+    for a, b in zip(gres, eres):
+        assert chip_smoke.results_equal(a, b)
+    for a, b in zip(g.state, e.state):
+        if isinstance(a, torch.Tensor):
+            assert chip_smoke.bits_equal(a, b)
+    assert all(bool(r.good) for r in gres)
+
+
+def test_graphed_batch_equals_eager(dev):
+    cams_frames = [_scene_frames(dev, seed=s) for s in (0, 1)]
+    cam = cams_frames[0][0]
+    L = [torch.stack([cf[1][i][0] for cf in cams_frames]) for i in range(N_FRAMES)]
+    R = [torch.stack([cf[1][i][1] for cf in cams_frames]) for i in range(N_FRAMES)]
+    runs = []
+    for capture in (True, False):
+        bvo = BatchedVisualOdometry(2, cam, FCFG, TrackerConfig(), device=dev, capture=capture)
+        bvo.initialize(L[0], R[0])
+        out = []
+        for i in range(1, N_FRAMES):
+            out.append(bvo.process(L[i], R[i]))
+            if i == 2:
+                bvo.mark_keyframe([False, True])
+        runs.append((bvo, out))
+    assert runs[0][0].programs()[0].captured
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert chip_smoke.results_equal(a, b)
+
+
+def test_graphed_local_ba_equals_eager(dev):
+    """The mapper's bucket program (uploads, bundle_adjust, Plücker output,
+    packed result) graphed and eager on bench_slam.py's problem; a second
+    solve of the bucket replays and leaves the first result as it was."""
+    prob = chip_smoke.local_ba_problem("cpu")
+    prob = type(prob)(*(None if x is None else x.numpy() for x in prob))
+    cam = StereoCamera.create(*chip_smoke.LBA_CAM)
+    outs = []
+    for capture in (True, False):
+        mapper = MapHandler(cam, MapConfig(), device=dev, capture=capture)
+        out, _ = mapper._solve_local(prob, {"lines_plucker": None})
+        outs.append((mapper, out))
+    (gm, gout), (_, eout) = outs
+    assert gm.ba_graph_stats()["captured"] == 1
+    assert chip_smoke.bits_equal(gout, eout)
+    keep = gout.clone()
+    moved = prob._replace(points=prob.points + np.float32(0.01))
+    again, _ = gm._solve_local(moved, {"lines_plucker": None})
+    assert gm.ba_graph_stats()["built"] == 1
+    assert chip_smoke.bits_equal(gout, keep) and not chip_smoke.bits_equal(again, gout)
+
+
+def test_replays_count_their_launches(dev):
+    """A capture records the wrappers' launches without counting them;
+    each replay counts them on the replaying thread."""
+    g = torch.Generator().manual_seed(0)
+    d1 = torch.randint(-2**31, 2**31 - 1, (64, 8), generator=g, dtype=torch.int32).to(dev)
+    d2 = torch.randint(-2**31, 2**31 - 1, (48, 8), generator=g, dtype=torch.int32).to(dev)
+    wrapper = cuda_hamming.hamming_distance_matrix_cuda
+    n0 = wrapper.launches
+    prog = graphs.Program(lambda: wrapper(d1, wrapper(d1, d2)[:, :8].contiguous()), dev)
+    warm = 2 * graphs.WARMUP
+    assert wrapper.launches == n0 + warm       # the warm-up ran; the capture did not count
+    assert prog.launches_per_replay() == {"hamming_distance_matrix_cuda": 2}
+    for _ in range(3):
+        out = prog()
+    torch.cuda.synchronize()
+    assert wrapper.launches == n0 + warm + 6 and prog.replays == 3
+    assert torch.equal(out, wrapper(d1, wrapper(d1, d2)[:, :8].contiguous()))
+
+
+def test_a_capture_that_syncs_raises(dev):
+    """A function that syncs with the host cannot be captured: the Program
+    raises, and nothing runs it eagerly in its place (in a fresh process:
+    a failed capture leaves the allocator's capture bookkeeping behind)."""
+    code = ("import torch\n"
+            "from plslam_tpu_torch import graphs\n"
+            "x = torch.ones(4, device='cuda')\n"
+            "try:\n"
+            "    graphs.Program(lambda: x.sum().item(), 'cuda')\n"
+            "    print('captured')\n"
+            "except RuntimeError as e:\n"
+            "    print('raised', graphs.stats()['captures'], str(e).splitlines()[0])\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.startswith("raised 0"), proc.stdout

@@ -78,3 +78,58 @@ def load_script(name: str, argv=()):
     finally:
         sys.argv = saved
     return mod
+
+
+# -- the static-buffer trackers (tests/test_torch_graphs*.py) -----------------
+
+
+def port_cam(scene):
+    """The port's camera of a synthetic scene."""
+    from plslam_tpu_torch.core.camera import StereoCamera
+
+    return StereoCamera.create(scene.fx, scene.fy, scene.cx, scene.cy, scene.b,
+                               width=scene.width, height=scene.height)
+
+
+def tt(x):
+    """numpy -> CPU tensor (no copy)."""
+    return torch.from_numpy(np.ascontiguousarray(x))
+
+
+def mark_keyframe_fn(state):
+    """The functional ``mark_keyframe`` (the JAX package's)."""
+    return state._replace(T_prevKF=state.T_f_w,
+                          cov_prevKF_accum=torch.zeros_like(state.cov_prevKF_accum),
+                          frames_since_kf=torch.zeros_like(state.frames_since_kf),
+                          prev_was_kf=torch.ones_like(state.prev_was_kf))
+
+
+def bits_equal(a, b):
+    """Two tensors with the same bits (a NaN equals the same NaN)."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+
+
+def results_equal(a, b):
+    """Two NamedTuples of tensors bit for bit, field by field."""
+    return all(bits_equal(x, y) for x, y in zip(a, b))
+
+
+def tree_equal(a, b):
+    """Two nested NamedTuples of tensors bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return bits_equal(a, b)
+    return all(tree_equal(x, y) for x, y in zip(a, b))
+
+
+def ate_within_jax(got, want, poses):
+    """test_torch_vo.py's bar: the port's unaligned ATE over the frames
+    under max(2x JAX's, 0.01 m)."""
+    from plslam_tpu_torch.io import ate_rmse
+
+    gt = np.stack([p[:3, 3] for p in poses])
+    ate_t = ate_rmse(np.stack([to_np(T)[..., :3, 3] for T in got]).reshape(-1, 3),
+                     gt, align=False)
+    ate_j = ate_rmse(np.stack([np.asarray(T)[..., :3, 3] for T in want]).reshape(-1, 3),
+                     gt, align=False)
+    assert ate_t <= max(2.0 * ate_j, 0.01), (ate_t, ate_j)
