@@ -26,14 +26,20 @@ Phases, each reported on its own lines:
      frame's ``T_f_w`` bit-identical to the same step with
      ``capture=False``; frames/s of both forms in interleaved windows, and
      a profile of each (device busy, device kernels and host CUDA calls
-     per frame);
+     per frame); the ms of the eager ``initialize``;
   5. SLAM path: ``PLSLAM`` at bench_slam.py's configuration (tracking, the
      mapping worker thread, deferred local BA, chunked GBA at finish),
-     the tracker and the local BA graphed, beside the same run eagerly:
-     for both, every frame good, >= 8 keyframes, a local BA written back,
-     finite GBA poses, keyframe ATE under the floor; the graphed run's
-     local-BA buckets captured and the Hamming kernel launched from the
-     mapping thread; local-BA ms per solve of both;
+     the tracker, the fused association and the local BA graphed, beside
+     the same run eagerly: for both, every frame good, >= 8 keyframes, a
+     local BA written back, finite GBA poses, keyframe ATE under the
+     floor, the keyframe trajectories bit-identical; the graphed run's
+     association and local-BA programs captured and the Hamming kernel
+     launched from the mapping thread; local-BA ms per solve of both; per
+     program kind captures, replays and pool bytes; the mapping thread's
+     keyframes replayed serially on a fresh mapper of each form under the
+     profiler (host CUDA calls, graph launches, device kernels and ms per
+     keyframe); a third, graphed run's timed frames under the profiler
+     (device busy, kernels per frame, the kernels taking the most time);
   6. local BA: LM iterations/s of ``lm_rounds`` (f32, K=8, P=512, L=64),
      eager and as one CUDA graph; the graphed iterates and the graphed
      ``bundle_adjust`` bit for bit the eager ones;
@@ -42,13 +48,22 @@ Phases, each reported on its own lines:
      pose refinement, graphed beside eager; for both every frame good,
      >= 8 keyframes, a local BA written back, every keyframe BoW-encoded,
      no loop (20 frames lie under ``lc_kf_dist``), keyframe ATE under the
-     floor; the Hamming kernel launched from the mapping thread;
+     floor; the Hamming kernel launched from the mapping thread; the split
+     association (KF2KF, Map2KF), the refinement and the BoW transform
+     captured; phase 5's program counts and mapping profile;
   8. loop closure at reference scale: the 156-keyframe ring replay of
      tests/test_scale_e2e.py through ``insert_keyframe_features`` (drifted
-     odometry, ``lc_kf_dist=50``, online vocabulary): a closure against
-     the KF-0 region, no false loop, ATE and closure-keyframe error below
-     the odometry's, real fusion, a multi-chunk endpoint GBA at finish, the
-     Hamming kernel launched from the loop-closure thread;
+     odometry, ``lc_kf_dist=50``, online vocabulary), graphed beside eager,
+     each: a closure against the KF-0 region, no false loop, ATE and
+     closure-keyframe error below the odometry's, real fusion, a
+     multi-chunk endpoint GBA at finish, the Hamming kernel launched from
+     the loop-closure thread; keyframes/s and per program kind captures,
+     replays and pool bytes; the association, local-BA and BoW programs
+     captured; the two runs' keyframe trajectories bit for bit unless
+     their closures corrected maps of different keyframes (the loop
+     closer corrects the map it finds when its verification ends, so the
+     threads' timing moves the result); on the same maps a difference
+     fails unless a second eager run differs from the first too;
   9. disk path: a 40-frame 752x480 EuRoC-layout fixture (``io/mini_euroc``,
      phase 4's scene, written during phase 2) through ``run_euroc.main``
      with configs/config_euroc.yaml, the prefetching loader (decode on
@@ -157,6 +172,10 @@ LM_ITERS = 10
 LM_REPS = 5
 MAPPER_THREAD = "plslam-mapper"
 LOOP_THREAD = "plslam-loopcloser"
+# phases 5 and 7 replay the mapping thread's keyframes serially and profile
+# all but the first MAP_PROFILE_SKIP of them (whose calls capture most
+# programs)
+MAP_PROFILE_SKIP = 3
 CONFIGS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
 
 # Keyframe ATE (m, aligned as in phase 5) of the JAX package's PLSLAM at
@@ -675,7 +694,10 @@ def phase_main_path(dev, scene, poses, frames, smi):
     _sync(dev)
     capture_s = time.perf_counter() - t
     prog = vo.programs()[0]
+    t = time.perf_counter()
     vo.initialize(*frames[0])
+    _sync(dev)
+    init_ms = 1e3 * (time.perf_counter() - t)
     results = [vo.process(*frames[i]) for i in range(1, N_WARMUP + 1)]
     _sync(dev)
     warm_state = vo.state
@@ -734,6 +756,8 @@ def phase_main_path(dev, scene, poses, frames, smi):
     say(f"main path frames/s in interleaved windows of {len(timed)} frames: graphed "
         f"{[round(x, 3) for x in fps['graphed']]}, eager {[round(x, 3) for x in fps['eager']]} "
         f"on {smi}")
+    say(f"main path: initialize (eager: the first pair's detection and stereo match) "
+        f"{init_ms:.3f} ms on {smi}")
     say(f"main path graph: captured in {capture_s:.3f} s (prewarm: {fcfg.n_points} points, "
         f"{fcfg.n_lines} line slots, {frames[0][0].shape[1]}x{frames[0][0].shape[0]}), pool "
         f"{prog.pool_bytes() / 2**20:.3f} MiB, {replays} replays over {N_FRAMES} timed frames, "
@@ -783,6 +807,7 @@ def run_slam(dev, cam, poses, frames, cfg, mcfg, capture: bool) -> dict:
     for fn in wrappers.values():
         fn.launches = 0
     slam = PLSLAM(cam, cfg, mcfg, device=dev, capture=capture)
+    jobs = record_keyframes(slam.mapper)
     t0 = time.perf_counter()
     for i in range(SLAM_WARMUP):
         slam.process(*frames[i], timestamp=0.05 * i)
@@ -808,7 +833,7 @@ def run_slam(dev, cam, poses, frames, cfg, mcfg, capture: bool) -> dict:
     r["lba_ms"] = lba_ms
     r["lba_shape"] = (int(prob.T_c_w.shape[0]), len(meta["pt_ids"]), len(meta["ls_ids"]),
                       int(prob.p_valid.sum()), int(prob.l_valid.sum()))
-    r["ba_graphs"] = slam.mapper.ba_graph_stats()
+    r["programs"] = program_stats(slam)
     r["vo_pool"] = sum(p.pool_bytes() for p in slam.vo.programs())
     t = time.perf_counter()
     r["traj"] = traj = slam.finish(run_gba=True)
@@ -816,6 +841,7 @@ def run_slam(dev, cam, poses, frames, cfg, mcfg, capture: bool) -> dict:
     r["gba_ms"] = 1e3 * (time.perf_counter() - t)
     r["wall"] = time.perf_counter() - t0
     r["by_thread"] = _by_thread(wrappers)
+    r["map_prof"] = profile_mapping(dev, slam.mapper, jobs, capture)
     r["good"] = [lg.good for lg in slam.logs]
     est = np.stack([T[:3, 3] for T in traj])
     gt = np.stack([poses[int(round(ts / 0.05))][:3, 3] for ts in slam.kf_timestamps])
@@ -823,9 +849,76 @@ def run_slam(dev, cam, poses, frames, cfg, mcfg, capture: bool) -> dict:
     return r
 
 
-def check_slam(name: str, g: dict, e: dict, floor: float, jax_ate: float, smi: str) -> None:
+def record_keyframes(mapper) -> list:
+    """The (pose, features) of every keyframe ``mapper`` takes from now on,
+    ``initialize``'s first, for ``profile_mapping``."""
+    jobs = []
+    init, add = mapper.initialize, mapper.add_keyframe
+
+    def initialize(pose, feats):
+        jobs.append((pose, feats))
+        return init(pose, feats)
+
+    def add_keyframe(pose, feats, **kw):
+        jobs.append((pose, feats))
+        return add(pose, feats, **kw)
+
+    mapper.initialize, mapper.add_keyframe = initialize, add_keyframe
+    return jobs
+
+
+def program_stats(slam) -> dict:
+    """Per program kind of the mapper and the loop closer: built, evicted,
+    captures, replays, pool bytes (``graphs.ProgramCache.stats``)."""
+    out = slam.mapper.graph_stats()
+    if slam.loop_closer is not None:
+        out["bow"] = slam.loop_closer.programs.stats()
+    return out
+
+
+def say_programs(label: str, stats: dict, smi: str) -> None:
+    """One line: captures, replays, replays per capture and pool MiB per
+    program kind that ran."""
+    parts = []
+    for kind, st in stats.items():
+        if st["built"]:
+            per = st["replays"] / st["captures"] if st["captures"] else 0.0
+            parts.append(f"{kind} {st['captures']} captures / {st['replays']} replays "
+                         f"({per:.1f} per capture), {st['built']} built, {st['evicted']} "
+                         f"evicted, pool {st['pool_bytes'] / 2**20:.3f} MiB")
+    say(f"{label} programs: {'; '.join(parts)} on {smi}")
+
+
+def profile_mapping(dev, mapper, jobs: list, capture: bool) -> dict:
+    """The mapping thread's work replayed serially on this thread: a fresh
+    ``MapHandler`` of ``mapper``'s configuration takes ``jobs`` as the
+    mapping worker did (``add_keyframe`` with the deferred local BA), the
+    first MAP_PROFILE_SKIP unprofiled, the rest under ``torch.profiler``:
+    per keyframe wall and device-busy ms, device kernels, host CUDA calls
+    and graph launches, and the captures made inside the window."""
+    from plslam_tpu_torch import graphs
+    from plslam_tpu_torch.backend.mapping import MapHandler
+    from plslam_tpu_torch.profile_vo import profile_window
+
+    fresh = MapHandler(mapper.cam, mapper.cfg, mapper.ba_cfg, tracker_cfg=mapper.tracker_cfg,
+                       device=dev, capture=capture)
+    fresh.initialize(*jobs[0])
+    for job in jobs[1:1 + MAP_PROFILE_SKIP]:
+        fresh.add_keyframe(*job, defer_ba=True)
+    rest = jobs[1 + MAP_PROFILE_SKIP:]
+    before = graphs.stats()["captures"]
+    w = profile_window(lambda i: fresh.add_keyframe(*rest[i], defer_ba=True), len(rest))
+    fresh.flush_ba()
+    out = {k: w[k] for k in ("wall_ms", "busy_ms", "busy_share", "kernels", "host_cuda_calls",
+                             "graph_launches")}
+    return {**out, "keyframes": len(rest), "captures": graphs.stats()["captures"] - before}
+
+
+def check_slam(name: str, g: dict, e: dict, floor: float, jax_ate: float, smi: str,
+               kinds: tuple) -> None:
     """Report the graphed run ``g`` beside the eager run ``e`` and hold
-    both to the SLAM checks; the graphed run also to its kernel launches."""
+    both to the SLAM checks; the graphed run also to its kernel launches
+    and to a capture of each program kind in ``kinds``."""
     same = len(g["traj"]) == len(e["traj"]) and all(
         np.array_equal(a, b) for a, b in zip(g["traj"], e["traj"]))
     for form, r in (("graphed", g), ("eager", e)):
@@ -837,8 +930,15 @@ def check_slam(name: str, g: dict, e: dict, floor: float, jax_ate: float, smi: s
             f"{smi}")
         say(f"{name} {form}: local BA median {float(np.median(r['lba_ms'])):.3f} ms per solve "
             f"(min {min(r['lba_ms']):.3f}, max {max(r['lba_ms']):.3f}; {LBA_REPS} solves of the "
-            f"final window; K, points, lines, point obs, line obs = {r['lba_shape']}); BA "
-            f"graphs {r['ba_graphs']}; VO graph pool {r['vo_pool'] / 2**20:.3f} MiB")
+            f"final window; K, points, lines, point obs, line obs = {r['lba_shape']}); VO "
+            f"graph pool {r['vo_pool'] / 2**20:.3f} MiB")
+        say_programs(f"{name} {form}", r["programs"], smi)
+        p = r["map_prof"]
+        say(f"{name} {form}: the mapping thread's keyframes replayed serially, {p['keyframes']} "
+            f"profiled: {p['host_cuda_calls']:.1f} host CUDA calls, {p['graph_launches']:.1f} "
+            f"graph launches, {p['kernels']:.1f} device kernels, wall {p['wall_ms']:.3f} ms, "
+            f"device busy {p['busy_ms']:.3f} ms ({100 * p['busy_share']:.2f}%) per keyframe; "
+            f"{p['captures']} captures in the window on {smi}")
     say(f"{name}: graphed and eager keyframe trajectories bit-identical: {same}")
     say(f"{name} launches by thread (graphed run): {g['by_thread']}")
     for form, r in (("graphed", g), ("eager", e)):
@@ -860,8 +960,12 @@ def check_slam(name: str, g: dict, e: dict, floor: float, jax_ate: float, smi: s
             raise AssertionError(f"{name} {form}: GBA poses are not finite")
         if not r["ate"] <= floor:
             raise AssertionError(f"{name} {form}: keyframe ATE {r['ate']} above floor {floor}")
-    if g["ba_graphs"]["captured"] < 1:
-        raise AssertionError(f"{name}: no local-BA graph was captured")
+    for kind in kinds:
+        if g["programs"][kind]["captures"] < 1:
+            raise AssertionError(f"{name}: no {kind} program was captured: {g['programs']}")
+    if g["map_prof"]["graph_launches"] < 1:
+        raise AssertionError(f"{name}: the graphed mapping replay launched "
+                             f"{g['map_prof']['graph_launches']} graphs per keyframe")
     if g["by_thread"]["hamming_distance_matrix_cuda"].get(MAPPER_THREAD, 0) <= 0:
         raise AssertionError(f"{name}: the mapping thread never launched the Hamming kernel")
     for k in KERNEL_WRAPPERS:
@@ -882,9 +986,42 @@ def slam_frames(dev, scene):
     return cam, poses, frames
 
 
+def slam_profile(dev, cam, frames, cfg, mcfg, smi) -> None:
+    """Where a graphed SLAM frame's time goes: one more graphed run, its
+    timed frames under ``torch.profiler``, which traces the device work of
+    every thread: wall and device-busy ms per frame, the busy share, device
+    kernels per frame and the kernels that take the most device time."""
+    from plslam_tpu_torch.pipeline import PLSLAM
+    from plslam_tpu_torch.profile_vo import _device_us, profile_window
+
+    slam = PLSLAM(cam, cfg, mcfg, device=dev)
+    for i in range(SLAM_WARMUP):
+        slam.process(*frames[i], timestamp=0.05 * i)
+    slam.wait_until_idle()
+    timed = frames[SLAM_WARMUP:]
+
+    def run(i):
+        slam.process(*timed[i], timestamp=0.05 * (SLAM_WARMUP + i))
+        if i == len(timed) - 1:
+            slam.wait_until_idle()
+
+    w = profile_window(run, len(timed))
+    slam.finish(run_gba=False)
+    avg = sorted((e for e in w["prof"].key_averages() if _device_us(e) > 0), key=_device_us,
+                 reverse=True)
+    top = "; ".join(f"{e.key[:60]} {_device_us(e) / 1e3 / w['n']:.3f} ms x{e.count / w['n']:.1f}"
+                    for e in avg[:10])
+    say(f"slam profile (graphed, {w['n']} frames, the mapping thread included): wall "
+        f"{w['wall_ms']:.3f} ms/frame, device busy {w['busy_ms']:.3f} ms/frame "
+        f"({100 * w['busy_share']:.2f}% of wall), {w['kernels']:.1f} device kernels/frame, "
+        f"{w['host_cuda_calls']:.1f} host CUDA calls/frame on {smi}")
+    say(f"slam profile: top device kernels per frame: {top}")
+
+
 def phase_slam(dev, scene, smi):
     """PLSLAM through the kernels at bench_slam.py's configuration, the
-    tracker and the mapper graphed, beside the same run eagerly."""
+    tracker and the mapper graphed, beside the same run eagerly, and a
+    profile of the graphed run."""
     from plslam_tpu_torch.backend.mapping import MapConfig
     from plslam_tpu_torch.config import PLSLAMConfig
 
@@ -893,7 +1030,8 @@ def phase_slam(dev, scene, smi):
     mcfg = MapConfig(local_ba_kf=8, ba_points=2048, ba_lines=256, ba_pobs=8192, ba_lobs=2048)
     g = run_slam(dev, cam, poses, frames, cfg, mcfg, capture=True)
     e = run_slam(dev, cam, poses, frames, cfg, mcfg, capture=False)
-    check_slam("slam", g, e, SLAM_ATE_FLOOR, JAX_CPU_SLAM_ATE, smi)
+    check_slam("slam", g, e, SLAM_ATE_FLOOR, JAX_CPU_SLAM_ATE, smi, ("local_ba", "assoc"))
+    slam_profile(dev, cam, frames, cfg, mcfg, smi)
     return g["by_thread"], {"graphed": g["fps"], "eager": e["fps"]}, g["ate"]
 
 
@@ -1057,7 +1195,8 @@ def phase_endpoint_slam(dev, scene, smi):
                      plucker_lines=False, has_refinement=True)
     g = run_slam(dev, cam, poses, frames, cfg, mcfg, capture=True)
     e = run_slam(dev, cam, poses, frames, cfg, mcfg, capture=False)
-    check_slam("endpoint slam", g, e, EP_ATE_FLOOR, JAX_CPU_EP_ATE, smi)
+    check_slam("endpoint slam", g, e, EP_ATE_FLOOR, JAX_CPU_EP_ATE, smi,
+               ("local_ba", "kf2kf", "refine", "map2kf", "bow"))
     say(f"endpoint slam: {g['n_bow']} keyframes BoW-encoded, {len(g['slam'].loop_reports)} loops")
     return g["by_thread"], {"graphed": g["fps"], "eager": e["fps"]}, g["ate"]
 
@@ -1079,15 +1218,129 @@ class _Messages(logging.Handler):
         self.messages.append(record.getMessage())
 
 
-def phase_loop_closure(dev, smi):
-    """tests/test_scale_e2e.py's ring replay through PLSLAM on the card."""
+def run_ring(dev, cam, feats, T_est, T_true, capture: bool) -> dict:
+    """The ring replay through PLSLAM with ``capture`` (launch counts set
+    to 0 before it, read after it): keyframes/s, the keyframe poses after
+    the replay and after the GBA, the closures, the GBA's chunks, the
+    program counts and the launches by thread."""
     from plslam_tpu_torch.backend.mapping import MapConfig
     from plslam_tpu_torch.config import PLSLAMConfig
+    from plslam_tpu_torch.pipeline import PLSLAM
+
+    cfg = PLSLAMConfig(use_line_plucker=False, use_loop_closure=True, multithread_slam=True)
+    if cfg.lc_kf_dist != 50:
+        raise AssertionError(f"lc_kf_dist {cfg.lc_kf_dist}: the reference gating is 50")
+    slam = PLSLAM(cam, cfg, MapConfig(use_lines=True, plucker_lines=False, local_ba_kf=8,
+                                      ba_points=512, ba_lines=64, ba_pobs=2048, ba_lobs=512),
+                  device=dev, capture=capture)
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    for i in range(RING_KF):
+        slam.insert_keyframe_features(T_est[i], feats[i], timestamp=0.1 * i)
+    slam.wait_until_idle()
+    torch.cuda.synchronize()
+    r = {"slam": slam, "kf_per_s": RING_KF / (time.perf_counter() - t0),
+         "closed": [k.T_w_k.copy() for k in slam.mapper.map.keyframes]}
+    r["ate_closed"] = _ate_translation(r["closed"], T_true)
+    r["programs"] = program_stats(slam)
+
+    log = logging.getLogger("plslam")
+    handler, old_level = _Messages(), log.level
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    try:
+        t = time.perf_counter()
+        r["traj"] = slam.finish(run_gba=True)
+        torch.cuda.synchronize()
+        r["gba_ms"] = 1e3 * (time.perf_counter() - t)
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(old_level)
+    r["by_thread"] = {k: fn.launches_by_thread() for k, fn in wrappers.items()}
+    gba_msgs = [m for m in handler.messages if m.startswith("GBA:")]
+    r["gba_msgs"] = gba_msgs
+    r["n_chunks"] = int(gba_msgs[-1].split(" in ")[1].split()[0]) if gba_msgs else 0
+    r["ate_gba"] = _ate_translation(r["traj"], T_true)
+    return r
+
+
+def check_ring(form: str, r: dict, T_est, T_true, smi: str) -> None:
+    """Phase 8's report and checks of one ring run."""
+    slam = r["slam"]
+    mp = slam.mapper.map
+    drift_odo = _ate_translation(T_est, T_true)
+    reports = slam.loop_reports
+    say(f"loop {form}: {r['kf_per_s']:.3f} keyframes/s over the {RING_KF}-keyframe replay; "
+        f"{len(mp.keyframes)} keyframes, {int(mp.pt_valid.sum())} points, "
+        f"{int(mp.ls_valid.sum())} lines; on {smi}")
+    for rep in reports:
+        say(f"loop {form}: closure kf {rep['kf']} -> candidate {rep['candidate']} on the map "
+            f"of {rep['map_keyframes']} keyframes: verification {rep['verify_ms']:.3f} ms, PGO "
+            f"{rep['pgo_ms']:.3f} ms, fusion "
+            f"{rep['fuse_ms']:.3f} ms, fused {rep['fused']}, "
+            f"correction {rep['correction']:.6f} m on {smi}")
+    say(f"loop {form}: ATE odometry {drift_odo:.6f} m, after the closure {r['ate_closed']:.6f} "
+        f"m, after the GBA {r['ate_gba']:.6f} m; GBA (finish) {r['gba_ms']:.3f} ms in "
+        f"{r['n_chunks']} chunks on {smi}")
+    say_programs(f"loop {form}", r["programs"], smi)
+    say(f"loop {form} launches by thread: {r['by_thread']}")
+    if slam._map_errors:
+        raise AssertionError(f"loop {form}: a worker thread raised: {slam._map_errors!r}")
+    if not reports:
+        raise AssertionError(f"loop {form}: no loop closure at lc_kf_dist=50")
+    rep = reports[-1]
+    for x in reports:
+        if not (x["kf"] >= RING_REVISIT and x["candidate"] <= 20):
+            raise AssertionError(f"loop {form}: false loop closure: {x}")
+    if not (rep["candidate"] <= rep["kf"] - 50):
+        raise AssertionError(f"loop {form}: candidate within lc_kf_dist: {rep}")
+    if not (drift_odo > 0.1 and r["ate_closed"] < drift_odo):
+        raise AssertionError(f"loop {form}: ATE after the closure {r['ate_closed']} vs "
+                             f"odometry {drift_odo}")
+    k = rep["kf"]
+    err_odo = np.linalg.norm(T_est[k][:3, 3] - T_true[k][:3, 3])
+    err_map = np.linalg.norm(mp.keyframes[k].T_w_k[:3, 3] - T_true[k][:3, 3])
+    say(f"loop {form}: closure keyframe error {err_map:.6f} m vs odometry {err_odo:.6f} m")
+    if not (err_odo > 0.1 and err_map < 0.5 * err_odo):
+        raise AssertionError(f"loop {form}: closure keyframe error {err_map} vs odometry "
+                             f"{err_odo}")
+    if sum(rep["fused"].values()) < 10:
+        raise AssertionError(f"loop {form}: too little fusion: {rep['fused']}")
+    if r["n_chunks"] < 2:
+        raise AssertionError(f"loop {form}: GBA ran in {r['n_chunks']} chunk(s): "
+                             f"{r['gba_msgs']}")
+    if not (np.isfinite(np.stack(r["traj"])).all() and r["ate_gba"] < 1.0):
+        raise AssertionError(f"loop {form}: GBA poses: finite "
+                             f"{np.isfinite(np.stack(r['traj'])).all()}, ATE {r['ate_gba']}")
+    if r["by_thread"]["hamming_distance_matrix_cuda"].get(LOOP_THREAD, 0) <= 0:
+        raise AssertionError(f"loop {form}: the loop-closure thread never launched Hamming")
+
+
+def _closures(r: dict) -> list:
+    """A ring run's closures: (keyframe, candidate, keyframes in the map
+    the correction met)."""
+    return [(x["kf"], x["candidate"], x["map_keyframes"]) for x in r["slam"].loop_reports]
+
+
+def _same_trajectories(a: dict, b: dict) -> tuple[bool, float]:
+    """Two ring runs' keyframe poses after the replay and after the GBA:
+    bit for bit, and the largest difference."""
+    pairs = [(x, y) for key in ("closed", "traj") for x, y in zip(a[key], b[key])]
+    same = (len(a["closed"]) == len(b["closed"]) and len(a["traj"]) == len(b["traj"])
+            and all(np.array_equal(x, y) for x, y in pairs))
+    diff = max((float(np.abs(x - y).max()) for x, y in pairs), default=float("inf"))
+    return same, diff
+
+
+def phase_loop_closure(dev, smi):
+    """tests/test_scale_e2e.py's ring replay through PLSLAM on the card,
+    graphed beside eager (a second eager run when the two differ)."""
     from plslam_tpu_torch.convert import stereo_features_from_numpy
     from plslam_tpu_torch.core import lie
     from plslam_tpu_torch.core.camera import StereoCamera
     from plslam_tpu_torch.io.ring_world import RingWorld, render_ring_features
-    from plslam_tpu_torch.pipeline import PLSLAM
 
     cam = StereoCamera.create(458.0, 457.0, 376.0, 240.0, 0.11, width=752, height=480)
     cam_k = cam[:5]   # the f32-rounded intrinsics, as the fixture renders
@@ -1105,81 +1358,37 @@ def phase_loop_closure(dev, smi):
              for T in T_true]
     torch.cuda.synchronize()
 
-    cfg = PLSLAMConfig(use_line_plucker=False, use_loop_closure=True, multithread_slam=True)
-    if cfg.lc_kf_dist != 50:
-        raise AssertionError(f"lc_kf_dist {cfg.lc_kf_dist}: the reference gating is 50")
-    slam = PLSLAM(cam, cfg, MapConfig(use_lines=True, plucker_lines=False, local_ba_kf=8,
-                                      ba_points=512, ba_lines=64, ba_pobs=2048, ba_lobs=512),
-                  device=dev)
-    wrappers = _wrappers()
-    for fn in wrappers.values():
-        fn.launches = 0
-    t0 = time.perf_counter()
-    for i in range(RING_KF):
-        slam.insert_keyframe_features(T_est[i], feats[i], timestamp=0.1 * i)
-    slam.wait_until_idle()
-    torch.cuda.synchronize()
-    kf_per_s = RING_KF / (time.perf_counter() - t0)
-    mp = slam.mapper.map
-    ate_closed = _ate_translation([k.T_w_k for k in mp.keyframes], T_true)
-
-    log = logging.getLogger("plslam")
-    handler, old_level = _Messages(), log.level
-    log.addHandler(handler)
-    log.setLevel(logging.INFO)
-    try:
-        t = time.perf_counter()
-        traj = slam.finish(run_gba=True)
-        torch.cuda.synchronize()
-        gba_ms = 1e3 * (time.perf_counter() - t)
-    finally:
-        log.removeHandler(handler)
-        log.setLevel(old_level)
-    by_thread = {k: fn.launches_by_thread() for k, fn in wrappers.items()}
-    gba_msgs = [m for m in handler.messages if m.startswith("GBA:")]
-    n_chunks = int(gba_msgs[-1].split(" in ")[1].split()[0]) if gba_msgs else 0
-    ate_gba = _ate_translation(traj, T_true)
-    drift_odo = _ate_translation(T_est, T_true)
-    reports = slam.loop_reports
-    r = reports[-1] if reports else None
-    say(f"loop: {kf_per_s:.3f} keyframes/s over the {RING_KF}-keyframe replay; "
-        f"{len(mp.keyframes)} keyframes, {int(mp.pt_valid.sum())} points, "
-        f"{int(mp.ls_valid.sum())} lines; on {smi}")
-    for rep in reports:
-        say(f"loop: closure kf {rep['kf']} -> candidate {rep['candidate']}: PGO "
-            f"{rep['pgo_ms']:.3f} ms, fusion {rep['fuse_ms']:.3f} ms, fused {rep['fused']}, "
-            f"correction {rep['correction']:.6f} m on {smi}")
-    say(f"loop: ATE odometry {drift_odo:.6f} m, after the closure {ate_closed:.6f} m, after "
-        f"the GBA {ate_gba:.6f} m; GBA (finish) {gba_ms:.3f} ms in {n_chunks} chunks on {smi}")
-    say(f"loop launches by thread: {by_thread}")
-    if slam._map_errors:
-        raise AssertionError(f"a worker thread raised: {slam._map_errors!r}")
-    if r is None:
-        raise AssertionError("no loop closure at lc_kf_dist=50")
-    for rep in reports:
-        if not (rep["kf"] >= RING_REVISIT and rep["candidate"] <= 20):
-            raise AssertionError(f"false loop closure: {rep}")
-    if not (r["candidate"] <= r["kf"] - 50):
-        raise AssertionError(f"candidate within lc_kf_dist: {r}")
-    if not (drift_odo > 0.1 and ate_closed < drift_odo):
-        raise AssertionError(f"ATE after the closure {ate_closed} vs odometry {drift_odo}")
-    k = r["kf"]
-    err_odo = np.linalg.norm(T_est[k][:3, 3] - T_true[k][:3, 3])
-    err_map = np.linalg.norm(mp.keyframes[k].T_w_k[:3, 3] - T_true[k][:3, 3])
-    say(f"loop: closure keyframe error {err_map:.6f} m vs odometry {err_odo:.6f} m")
-    if not (err_odo > 0.1 and err_map < 0.5 * err_odo):
-        raise AssertionError(f"closure keyframe error {err_map} vs odometry {err_odo}")
-    if sum(r["fused"].values()) < 10:
-        raise AssertionError(f"too little fusion: {r['fused']}")
-    if n_chunks < 2:
-        raise AssertionError(f"GBA ran in {n_chunks} chunk(s): {gba_msgs}")
-    if not (np.isfinite(np.stack(traj)).all() and ate_gba < 1.0):
-        raise AssertionError(f"GBA poses: finite {np.isfinite(np.stack(traj)).all()}, "
-                             f"ATE {ate_gba}")
-    if by_thread["hamming_distance_matrix_cuda"].get(LOOP_THREAD, 0) <= 0:
-        raise AssertionError("the loop-closure thread never launched the Hamming kernel")
-    return by_thread, kf_per_s
-
+    g = run_ring(dev, cam, feats, T_est, T_true, capture=True)
+    check_ring("graphed", g, T_est, T_true, smi)
+    e = run_ring(dev, cam, feats, T_est, T_true, capture=False)
+    check_ring("eager", e, T_est, T_true, smi)
+    same, diff = _same_trajectories(g, e)
+    say(f"loop: graphed and eager keyframe trajectories (after the replay and after the GBA) "
+        f"bit-identical: {same} (max |difference| {diff:.3g}); keyframes/s graphed "
+        f"{g['kf_per_s']:.3f}, eager {e['kf_per_s']:.3f} on {smi}")
+    if not same:
+        # the loop closer corrects the map it finds when its verification
+        # ends: the threads' timing sets how many keyframes that map holds,
+        # and two runs whose corrections met different maps part.  Runs
+        # whose corrections met maps of the same keyframes must agree,
+        # unless the eager replay does not repeat itself either.
+        met = [_closures(r) for r in (g, e)]
+        say(f"loop: closures as (keyframe, candidate, keyframes in the map it corrected): "
+            f"graphed {met[0]}, eager {met[1]}")
+        if met[0] == met[1]:
+            e2 = run_ring(dev, cam, feats, T_est, T_true, capture=False)
+            check_ring("eager (again)", e2, T_est, T_true, smi)
+            repeat, rdiff = _same_trajectories(e, e2)
+            say(f"loop: two eager runs bit-identical: {repeat} (max |difference| {rdiff:.3g}); "
+                f"closures {_closures(e2)}")
+            if repeat:
+                raise AssertionError(f"loop: the graphed replay departs from an eager replay "
+                                     f"that repeats itself on the same maps (max |difference| "
+                                     f"{diff:.3g})")
+    for kind in ("local_ba", "assoc", "bow"):
+        if g["programs"][kind]["captures"] < 1:
+            raise AssertionError(f"loop: no {kind} program was captured: {g['programs']}")
+    return g["by_thread"], {"graphed": g["kf_per_s"], "eager": e["kf_per_s"]}
 
 
 def start_disk_fixture(path: str) -> subprocess.Popen:
@@ -2303,8 +2512,8 @@ def run_phases(args, dev, smi, kind, fixture, writer, render=None, eval_render=N
         f"keyframe ATE {slam_ate:.6f} m; local BA graphed {lm_ips['graphed']:.3f}, eager "
         f"{lm_ips['eager']:.3f} LM iterations/s on {smi}")
     say(f"endpoint slam path: graphed {ep_fps['graphed']:.3f}, eager {ep_fps['eager']:.3f} "
-        f"frames/s, keyframe ATE {ep_ate:.6f} m; loop replay {loop_kf_s:.3f} keyframes/s on "
-        f"{smi}")
+        f"frames/s, keyframe ATE {ep_ate:.6f} m; loop replay graphed {loop_kf_s['graphed']:.3f}, "
+        f"eager {loop_kf_s['eager']:.3f} keyframes/s on {smi}")
     say(f"disk path: {disk_fps:.3f} CLI frames/s, keyframe ATE {disk_ate:.6f} m; device remap "
         f"{remap_us:.3f} us per pair on {smi}")
     fps_by_b = {B: (round(r["frames_per_s"], 3), round(r["eager_frames_per_s"], 3))

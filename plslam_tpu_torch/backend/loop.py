@@ -24,6 +24,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import graphs
 from ..core import lie
 from ..core.camera import StereoCamera
 from ..frontend.features import TrackedLines, TrackedPoints
@@ -31,7 +32,7 @@ from ..frontend.tracker import TrackerConfig, optimize_pose
 from ..ops import matching as M
 from . import pgo as pgo_mod
 from . import vocab as vocab_mod
-from .mapping import (KeyframeRecord, MapHandler, _np_normalize_plucker,
+from .mapping import (GRAPH_BUCKETS, KeyframeRecord, MapHandler, _np_normalize_plucker,
                       _np_transform_plucker, _upload)
 
 
@@ -116,6 +117,10 @@ class LoopCloser:
         self.bow: list[dict] = []             # per-KF BoW records
         self.conf: np.ndarray = np.zeros((0, 0), np.float32)
         self.closed_at: int = -10 ** 9
+        # the BoW transform's programs, one per (vocabulary, N), built on
+        # the current vocabularies (dropped when they change); captured as
+        # the mapper's programs are
+        self.programs = graphs.ProgramCache(GRAPH_BUCKETS)
 
     # -- BoW bookkeeping ---------------------------------------------------
 
@@ -138,6 +143,7 @@ class LoopCloser:
                 return False
             voc = vocab_mod.train_vocabulary(corpus, k=self.cfg.vocab_k,
                                              depth=self.cfg.vocab_depth, iters=4)
+        self.programs.clear()   # their graphs read the old vocabularies
         self.voc = voc.to(self.device)
         if self.cfg.use_line_bow:
             voc_l = None
@@ -164,10 +170,9 @@ class LoopCloser:
     def _bow_of(self, kf: KeyframeRecord) -> dict:
         """BoW record with the feature-count and spatial-dispersion weights
         of insertKFBowVectorPL (:4182-4213); one copy to the host."""
-        up = functools.partial(_upload, device=self.device)
-        vecs = [vocab_mod.transform(self.voc, up(kf.pt_desc), up(kf.pt_valid))]
+        vecs = [self._transform("p", kf.pt_desc, kf.pt_valid)]
         if self.voc_l is not None:
-            vecs.append(vocab_mod.transform(self.voc_l, up(kf.ls_desc), up(kf.ls_valid)))
+            vecs.append(self._transform("l", kf.ls_desc, kf.ls_valid))
         flat = torch.cat(vecs).cpu().numpy()
         uv = kf.pt_uv[kf.pt_valid]
         rec = {"p": flat[: self.voc.num_words], "n_pt": int(len(uv)),
@@ -179,6 +184,21 @@ class LoopCloser:
         else:
             rec.update(l=None, n_ls=0, std_ls=0.0)
         return rec
+
+    def _transform(self, which: str, desc: np.ndarray, valid: np.ndarray) -> torch.Tensor:
+        """``vocab.transform`` of the point ("p") or line ("l") vocabulary
+        as one program per (vocabulary, N) over staged descriptors and
+        validity: a copy of the BoW vector.  Its ``index_add_`` sums 0/1
+        floats, which are exact in any order, so the vector does not move
+        with the order of the adds."""
+        voc = self.voc if which == "p" else self.voc_l
+        arrays = {"desc": np.asarray(desc, np.int32), "valid": np.asarray(valid, bool)}
+        # a held program keeps its vocabulary alive, so id(voc) names it
+        prog = self.programs.get(
+            (which, id(voc), graphs.StagedProgram.key(arrays)),
+            lambda: graphs.StagedProgram(lambda x: vocab_mod.transform(voc, x["desc"], x["valid"]),
+                                         arrays, self.device, capture=self.mapper.capture))
+        return prog(arrays)
 
     def _score_against(self, a: dict, db: list[dict]) -> np.ndarray:
         """Combined scores of record ``a`` against a list of records, the two
@@ -236,13 +256,15 @@ class LoopCloser:
         cand = self._look_for_candidates(kf_id)
         if cand is None:
             return None
+        t0 = time.perf_counter()
         ok, T_rel, pt_pairs, ls_pairs = self._verify_candidate(kf_id, cand)
         if not ok:
             return None
+        verify_ms = 1e3 * (time.perf_counter() - t0)
         with self.mapper._map_lock:
             report = self._close(kf_id, cand, T_rel, pt_pairs, ls_pairs)
         self.closed_at = kf_id
-        return report
+        return {**report, "verify_ms": verify_ms}
 
     # -- candidate gating (:4241-4301) ------------------------------------
 
@@ -418,8 +440,8 @@ class LoopCloser:
         fused = self._fuse_landmarks(kf_id, cand_id, pt_pairs, ls_pairs)
         t2 = time.perf_counter()
         drift = float(np.linalg.norm(T_new[kf_id][:3, 3] - T_old[kf_id][:3, 3]))
-        return {"kf": kf_id, "candidate": cand_id, "fused": fused, "correction": drift,
-                "pgo_ms": 1e3 * (t1 - t0), "fuse_ms": 1e3 * (t2 - t1)}
+        return {"kf": kf_id, "candidate": cand_id, "map_keyframes": K, "fused": fused,
+                "correction": drift, "pgo_ms": 1e3 * (t1 - t0), "fuse_ms": 1e3 * (t2 - t1)}
 
     def _fuse_landmarks(self, kf_id: int, cand_id: int,
                         pt_pairs: np.ndarray, ls_pairs: np.ndarray) -> dict:

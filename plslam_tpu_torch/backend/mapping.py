@@ -25,7 +25,6 @@ import functools
 import logging
 import threading
 from dataclasses import dataclass
-from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -102,6 +101,21 @@ def _pack_feats(feats: StereoFeatures) -> torch.Tensor:
     return torch.cat([fp.reshape(-1), fl.reshape(-1), desc.reshape(-1)])
 
 
+def _unpack_feats(buf: torch.Tensor, n_pt: int, n_ls: int) -> StereoFeatures:
+    """The feature set of a ``_pack_feats`` buffer as views of it: the
+    fields the association reads, the others zero."""
+    fp = buf[: n_pt * 7].view(n_pt, 7)
+    fl = buf[n_pt * 7: n_pt * 7 + n_ls * 18].view(n_ls, 18)
+    desc = buf[n_pt * 7 + n_ls * 18:].view(torch.int32).view(n_pt + n_ls, 8)
+    z = functools.partial(torch.zeros, device=buf.device)
+    pts = PointSet(uv=fp[:, 0:2], disp=z(n_pt), P=fp[:, 2:5], desc=desc[:n_pt],
+                   sigma2=fp[:, 5], valid=fp[:, 6] > 0.5)
+    ls = LineSet(sp=fl[:, 0:2], ep=fl[:, 2:4], sdisp=z(n_ls), edisp=z(n_ls), sP=fl[:, 4:7],
+                 eP=fl[:, 7:10], le=z((n_ls, 3)), angle=z(n_ls), NDc=fl[:, 10:16],
+                 desc=desc[n_pt:], sigma2=fl[:, 16], valid=fl[:, 17] > 0.5)
+    return StereoFeatures(points=pts, lines=ls)
+
+
 def _upload(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
@@ -121,6 +135,7 @@ class KeyframeRecord:
         n_pt = feats.points.uv.shape[0]
         n_ls = feats.lines.sp.shape[0]
         buf = packed if packed is not None else _pack_feats(feats).cpu().numpy()
+        self.packed = buf   # the host fields below are views of it
         fp = buf[: n_pt * 7].reshape(n_pt, 7)
         fl = buf[n_pt * 7: n_pt * 7 + n_ls * 18].reshape(n_ls, 18)
         desc = buf[n_pt * 7 + n_ls * 18:].reshape(n_pt + n_ls, 8).view(np.int32)
@@ -139,6 +154,21 @@ class KeyframeRecord:
         self.ls_valid = fl[:, 17] > 0.5
         self.ls_desc = desc[n_pt:]
         self.ls_lm = np.full(n_ls, -1, np.int64)
+
+    def host_packed(self) -> np.ndarray:
+        """The host features in ``_pack_feats`` layout (rebuilt from the
+        fields for a record restored from a checkpoint)."""
+        packed = getattr(self, "packed", None)
+        if packed is None:
+            fp = np.concatenate([self.pt_uv, self.pt_P, self.pt_sigma2[:, None],
+                                 self.pt_valid[:, None]], 1)
+            fl = np.concatenate([self.ls_sp, self.ls_ep, self.ls_sP, self.ls_eP, self.ls_NDc,
+                                 self.ls_sigma2[:, None], self.ls_valid[:, None]], 1)
+            desc = np.concatenate([self.pt_desc, self.ls_desc]).astype(np.int32)
+            packed = self.packed = np.concatenate([
+                fp.astype(np.float32).reshape(-1), fl.astype(np.float32).reshape(-1),
+                desc.view(np.float32).reshape(-1)])
+        return packed
 
     def dev_feats(self) -> StereoFeatures:
         """Device features; rebuilt (once) from the host copy after
@@ -705,100 +735,26 @@ def _gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return x[torch.clamp(idx, min=0).long()]
 
 
-# local-BA programs kept per MapHandler (capacity buckets, LRU)
-BA_GRAPH_BUCKETS = 4
+# programs kept per MapHandler and per kind (shape buckets, LRU); the
+# loop closer keeps as many per vocabulary
+GRAPH_BUCKETS = 4
 
 
-class LocalBAProgram:
-    """One capacity bucket's local BA as one program over static buffers
-    (``plslam_tpu.backend.ba.bundle_adjust_packed``: 3 uploads, 1 fetch):
-    the problem's fields packed by dtype into one host staging buffer each
-    (pinned on the card: floats, int64 indices, bools, and a fourth for a
-    Plücker table of another float type), their uploads into the static
-    device buffers that the ``BAProblem`` fields view, the segment plans
-    built from those index buffers, ``ba.bundle_adjust`` (both LM rounds
-    and the chi^2 gate), the Plücker output and the packed result.  A
-    call fills the staging buffers (after the previous replay's upload has
-    read them), replays, and returns a copy of the result."""
+def _local_ba_arrays(prob: ba_mod.BAProblem, meta) -> dict:
+    """A local-BA problem's host fields by name, the Plücker table of its
+    lines too; index fields as int64, as on the device
+    (``convert.ba_problem_from_numpy``)."""
+    out = {k: np.asarray(getattr(prob, k)) for k in ba_mod.BAProblem._fields
+           if getattr(prob, k) is not None}
+    if meta["lines_plucker"] is not None:
+        out["lines_plucker"] = np.asarray(meta["lines_plucker"])
+    return {k: a.astype(np.int64, copy=False) if a.dtype.kind in "iu" else a
+            for k, a in out.items()}
 
-    def __init__(self, mapper: "MapHandler", prob: ba_mod.BAProblem, meta):
-        self.cam, self.ba_cfg = mapper.cam, mapper.ba_cfg
-        dev = mapper.device
-        pinned = dev.type == "cuda"
-        self.slots = {}   # field -> (dtype, offset, shape)
-        sizes: dict = {}
-        for name, a in self._arrays(prob, meta):
-            dt = self._dtype(a)
-            self.slots[name] = (dt, sizes.get(dt, 0), a.shape)
-            sizes[dt] = sizes.get(dt, 0) + a.size
-        self.host = {dt: torch.empty(n, dtype=dt, pin_memory=pinned) for dt, n in sizes.items()}
-        self.host_np = {dt: h.numpy() for dt, h in self.host.items()}
-        self.dev = {dt: torch.empty(n, dtype=dt, device=dev) for dt, n in sizes.items()}
-        self._done = None
-        # the capture's warm-up solves read the staging buffers: this
-        # problem, not what a reused pinned block held (indices out of range)
-        self._fill(prob, meta)
-        self.program = graphs.Program(self._solve, dev, capture=mapper.capture)
 
-    @staticmethod
-    def _arrays(prob, meta):
-        out = [(k, np.asarray(getattr(prob, k))) for k in ba_mod.BAProblem._fields
-               if getattr(prob, k) is not None]
-        if meta["lines_plucker"] is not None:
-            out.append(("lines_plucker", np.asarray(meta["lines_plucker"])))
-        return out
-
-    @staticmethod
-    def _dtype(a: np.ndarray) -> torch.dtype:
-        # index fields are int64 on the device (convert.ba_problem_from_numpy)
-        return torch.int64 if a.dtype.kind in "iu" else torch.from_numpy(np.zeros(0, a.dtype)).dtype
-
-    @staticmethod
-    def key(prob, meta) -> tuple:
-        """The bucket: every field's name, shape and dtype."""
-        return tuple((k, a.shape, a.dtype.str) for k, a in LocalBAProgram._arrays(prob, meta))
-
-    def _view(self, name: str) -> torch.Tensor:
-        dt, off, shape = self.slots[name]
-        return self.dev[dt][off:off + int(np.prod(shape))].view(shape)
-
-    def _solve(self) -> torch.Tensor:
-        for dt, d in self.dev.items():
-            d.copy_(self.host[dt], non_blocking=True)
-        dp = ba_mod.BAProblem(**{k: self._view(k) if k in self.slots else None
-                                 for k in ba_mod.BAProblem._fields})
-        if "lines_plucker" in self.slots:
-            Lw = self._view("lines_plucker")
-            scale = torch.linalg.norm(Lw, dim=-1)
-            dp = dp._replace(lines_scale=scale, lines_orth=plucker_to_orth(
-                Lw / torch.clamp(scale, min=1e-12)[:, None]))
-        res = ba_mod.bundle_adjust(dp, self.cam, self.ba_cfg)
-        # the optimizer's 6-vector scale cancels in the ||d|| normalization
-        Lo = orth_to_plucker(res.problem.lines_orth)
-        Lo = Lo / torch.clamp(torch.linalg.norm(Lo[:, 3:], dim=-1), min=1e-12)[:, None]
-        f32 = torch.float32
-        return torch.cat([res.problem.T_c_w.reshape(-1), res.problem.points.reshape(-1),
-                          Lo.reshape(-1), res.p_active.to(f32), res.l_active.to(f32),
-                          res.cost.to(f32)[None]])
-
-    def wait(self) -> None:
-        """Block until the last replay has run."""
-        if self._done is not None:
-            self._done.synchronize()
-
-    def _fill(self, prob, meta) -> None:
-        for name, a in self._arrays(prob, meta):
-            dt, off, _ = self.slots[name]
-            self.host_np[dt][off:off + a.size] = a.reshape(-1)
-
-    def __call__(self, prob, meta) -> torch.Tensor:
-        self.wait()  # the staging buffers are the last replay's upload source
-        self._fill(prob, meta)
-        out = self.program().clone()
-        if self.program.device.type == "cuda":
-            self._done = torch.cuda.Event()
-            self._done.record()
-        return out
+# the mapper's program kinds: the local BA, the fused association, and the
+# split association's KF2KF, refinement and Map2KF
+PROGRAM_KINDS = ("local_ba", "assoc", "kf2kf", "refine", "map2kf")
 
 
 class MapHandler:
@@ -822,12 +778,10 @@ class MapHandler:
         # worker and outside callers; reentrant (add_keyframe -> flush_ba)
         self._map_lock = threading.RLock()
         self.n_local_ba_applied = 0   # local-BA results written back
-        # the local BA's captured programs, one per capacity bucket (LRU,
-        # most recent last); capture=False runs them eagerly
+        # the per-keyframe programs, captured per shape bucket (an LRU per
+        # kind); capture=False runs the same code eagerly
         self.capture = capture
-        self.ba_graph_buckets = BA_GRAPH_BUCKETS
-        self._ba_programs: OrderedDict = OrderedDict()
-        self.ba_graph_counts = {"built": 0, "evicted": 0}
+        self.programs = {kind: graphs.ProgramCache(GRAPH_BUCKETS) for kind in PROGRAM_KINDS}
 
     # -- device association (the JAX package's fused programs) -------------
 
@@ -965,6 +919,78 @@ class MapHandler:
                                  vpack[nb + nbl:nb + nbl + nk], vpack[nb + nbl + nk:],
                                  dk, nb, nbl)
 
+    # -- the association programs over staged inputs ----------------------
+
+    def _run_program(self, kind: str, fn, arrays: dict, trees: dict | None = None,
+                     static: tuple = ()):
+        """One replay of ``kind``'s program for these inputs' shape bucket
+        and ``fn``'s ``static`` arguments (built, and captured, on the
+        bucket's first call): a copy of its output."""
+        prog = self.programs[kind].get(
+            (static, graphs.StagedProgram.key(arrays, trees)),
+            lambda: graphs.StagedProgram(fn, arrays, self.device, trees=trees,
+                                         capture=self.capture))
+        return prog(arrays, trees)
+
+    def _assoc(self, prev: KeyframeRecord, feats: StereoFeatures, Tm, cpack, dpack, cval,
+               pf, nb: int, nbl: int) -> torch.Tensor:
+        """``_assoc_prog`` as one program per (nb, nbl): the previous
+        keyframe's host features staged as one block and unpacked in the
+        program, the new keyframe's device features packed into its buffer
+        by one kernel."""
+        n, nl = len(prev.pt_valid), len(prev.ls_valid)
+
+        def fn(x):
+            return self._assoc_prog(x["Tm"], _unpack_feats(x["prev"], n, nl), x["dk"],
+                                    x["prev_pt_lm"], x["prev_ls_lm"], x["cpack"], x["dpack"],
+                                    x["cval"], x["pf"], nb, nbl)
+
+        arrays = dict(Tm=Tm, prev=prev.host_packed(), prev_pt_lm=prev.pt_lm,
+                      prev_ls_lm=prev.ls_lm, cpack=cpack, dpack=dpack, cval=cval, pf=pf)
+        return self._run_program("assoc", fn, arrays, {"dk": feats}, static=(n, nl, nb, nbl))
+
+    def _kf2kf(self, prev: KeyframeRecord, dk: StereoFeatures, T_rel) -> torch.Tensor:
+        """``_kf2kf_prog`` as one program for the feature widths."""
+        n, nl = len(prev.pt_valid), len(prev.ls_valid)
+
+        def fn(x):
+            return self._kf2kf_prog(x["T_rel"], _unpack_feats(x["prev"], n, nl), x["dk"])
+
+        return self._run_program("kf2kf", fn, dict(T_rel=T_rel, prev=prev.host_packed()),
+                                 {"dk": dk}, static=(n, nl))
+
+    def _map2kf(self, dk: StereoFeatures, T_c_w, cpack, dpack, vpack, nb: int,
+                nbl: int) -> torch.Tensor:
+        """``_map2kf_prog`` as one program per (nb, nbl)."""
+        def fn(x):
+            return self._map2kf_prog(x["T_c_w"], x["cpack"], x["dpack"], x["vpack"], x["dk"],
+                                     nb, nbl)
+
+        return self._run_program("map2kf", fn, dict(T_c_w=T_c_w, cpack=cpack, dpack=dpack,
+                                                    vpack=vpack), {"dk": dk}, static=(nb, nbl))
+
+    def _refine(self, arrays: dict) -> torch.Tensor:
+        """The refinement's ``optimize_pose`` as one program per (n, nl)
+        over the staged ``TrackedPoints`` / ``TrackedLines`` fields
+        (``arrays``): the 19 floats DT, good and the point and line inlier
+        counts."""
+        tcfg = (self.tracker_cfg or TrackerConfig())._replace(
+            plucker_lines=self.cfg.plucker_lines, use_lines=self.cfg.use_lines)
+
+        def fn(x):
+            pts = TrackedPoints(P=x["P"], obs=x["obs"], sigma2=x["sigma2"], valid=x["valid"],
+                                inlier=x["valid"])
+            ls = TrackedLines(sP=x["sP"], eP=x["eP"], sp=x["sp"], ep=x["ep"], NDc=x["NDc"],
+                              sobs=x["sobs"], eobs=x["eobs"], le_obs=x["le"],
+                              sigma2=x["ls_sigma2"], valid=x["lvalid"], inlier=x["lvalid"])
+            est, pts_out, ls_out = optimize_pose(pts, ls, self.cam, tcfg)
+            f32 = torch.float32
+            return torch.cat([est.DT.reshape(-1).to(f32), est.good.to(f32)[None],
+                              pts_out.inlier.sum(dtype=torch.int32).to(f32)[None],
+                              ls_out.inlier.sum(dtype=torch.int32).to(f32)[None]])
+
+        return self._run_program("refine", fn, arrays)
+
     # -- public API (mapHandler.cpp initialize :50 / addKeyFrame :121) ----
 
     @_locked
@@ -1041,7 +1067,6 @@ class MapHandler:
         previous keyframe, the reference's order (:923-990, :1005)."""
         mp = self.map
         cfg = self.cfg
-        dev = self.device
         prev = mp.keyframes[-1]
         pose_vo = np.asarray(pose, np.float64)
         # provisional chain if a deferred BA is in flight; re-chained below
@@ -1075,10 +1100,7 @@ class MapHandler:
             inv_l[prev.ls_lm[wl]] = np.where(wl)[0]
             pf[nb:nb + len(cand_l)] = inv_l[cand_l]
 
-        out = self._assoc_prog(
-            _upload(Tm, dev), prev.dev_feats(), feats, _upload(prev.pt_lm, dev),
-            _upload(prev.ls_lm, dev), _upload(cpack, dev), _upload(dpack, dev),
-            _upload(cval, dev), _upload(pf, dev), nb, nbl)
+        out = self._assoc(prev, feats, Tm, cpack, dpack, cval, pf, nb, nbl)
         # one copy with any deferred local-BA result
         buf = self._fetch_with_pending(out)
         n, nl = len(prev.pt_valid), len(prev.ls_valid)
@@ -1113,8 +1135,7 @@ class MapHandler:
         the split association the pose refinement path runs."""
         prev = self.map.keyframes[-2]
         T_rel = np.linalg.inv(kf.T_w_k) @ prev.T_w_k  # prev-cam -> new-cam
-        buf = self._kf2kf_prog(_upload(T_rel.astype(np.float32), self.device),
-                               prev.dev_feats(), kf.dev_feats()).cpu().numpy()
+        buf = self._kf2kf(prev, kf.dev_feats(), T_rel.astype(np.float32)).cpu().numpy()
         n = len(prev.pt_valid)
         idx_w, idx_g = buf[:n], buf[n: 2 * n]
         # windowed -> global fallback when too few matches (:277-281)
@@ -1174,8 +1195,6 @@ class MapHandler:
         keyframe pair and take its pose if it passes the acceptance gates."""
         mp = self.map
         prev = mp.keyframes[-2]
-        tcfg = (self.tracker_cfg or TrackerConfig())._replace(
-            plucker_lines=self.cfg.plucker_lines, use_lines=self.cfg.use_lines)
         # correspondences: prev feature and new feature share a landmark,
         # joined through a landmark -> new-feature inverse table
         n = len(prev.pt_valid)
@@ -1208,18 +1227,10 @@ class MapHandler:
         lval = np.zeros(nl, bool)
         lval[idx1] = True
 
-        up = functools.partial(_upload, device=self.device)
-        pts = TrackedPoints(P=up(prev.pt_P), obs=up(obs), sigma2=up(prev.pt_sigma2),
-                            valid=up(val), inlier=up(val))
-        ls = TrackedLines(sP=up(prev.ls_sP), eP=up(prev.ls_eP), sp=up(prev.ls_sp),
-                          ep=up(prev.ls_ep), NDc=up(prev.ls_NDc), sobs=up(sobs),
-                          eobs=up(eobs), le_obs=up(le), sigma2=up(prev.ls_sigma2),
-                          valid=up(lval), inlier=up(lval))
-        est, pts_out, ls_out = optimize_pose(pts, ls, self.cam, tcfg)
-        f32 = torch.float32
-        buf = torch.cat([est.DT.reshape(-1).to(f32), est.good.to(f32)[None],
-                         pts_out.inlier.sum(dtype=torch.int32).to(f32)[None],
-                         ls_out.inlier.sum(dtype=torch.int32).to(f32)[None]]).cpu().numpy()
+        buf = self._refine(dict(P=prev.pt_P, obs=obs, sigma2=prev.pt_sigma2, valid=val,
+                                sP=prev.ls_sP, eP=prev.ls_eP, sp=prev.ls_sp, ep=prev.ls_ep,
+                                NDc=prev.ls_NDc, sobs=sobs, eobs=eobs, le=le,
+                                ls_sigma2=prev.ls_sigma2, lvalid=lval)).cpu().numpy()
         DT, good = buf[:16].reshape(4, 4), bool(buf[16] > 0.5)
         inl_pt, inl_ls = int(buf[17]), int(buf[18])
         # acceptance (:952-967): per-modality inlier ratio at least
@@ -1249,7 +1260,6 @@ class MapHandler:
         (matchMap2KFPoints :697 / Lines :799)."""
         mp = self.map
         cfg = self.cfg
-        dev = self.device
         local_kf = mp.local_kf_set()
         in_kf = np.zeros(mp.n_pt, bool)
         in_kf[kf.pt_lm[kf.pt_lm >= 0]] = True
@@ -1270,9 +1280,8 @@ class MapHandler:
         cpack, dpack, cval = self._stage_candidates(cand, cand_l, nb, nbl)
         vpack = np.concatenate([cval, kf.pt_valid & (kf.pt_lm < 0),
                                 kf.ls_valid & (kf.ls_lm < 0)])
-        buf = self._map2kf_prog(_upload(np.linalg.inv(kf.T_w_k).astype(np.float32), dev),
-                                _upload(cpack, dev), _upload(dpack, dev),
-                                _upload(vpack, dev), kf.dev_feats(), nb, nbl)
+        buf = self._map2kf(kf.dev_feats(), np.linalg.inv(kf.T_w_k).astype(np.float32), cpack,
+                           dpack, vpack, nb, nbl)
         self._apply_map2kf(kf, cand, cand_l, buf.cpu().numpy(), nb, nbl)
 
     def _apply_map2kf(self, kf: KeyframeRecord, cand: np.ndarray,
@@ -1583,36 +1592,37 @@ class MapHandler:
         """Run the two-round BA on the device; return one f32 buffer
         [T_c_w | points | lines as ||d||=1 Pluecker | p_active | l_active |
         cost] and its layout.  One replay of the capacity bucket's program
-        (``LocalBAProgram``), captured on the bucket's first solve; an LRU
-        keeps ``ba_graph_buckets`` of them.  The buffer is a copy: a later
-        replay of the bucket leaves it as it is."""
-        key = LocalBAProgram.key(prob, meta)
-        with self._ba_lock:
-            prog = self._ba_programs.pop(key, None)
-        if prog is None:
-            prog = LocalBAProgram(self, prob, meta)
-            self.ba_graph_counts["built"] += 1
-        with self._ba_lock:
-            self._ba_programs[key] = prog
-            evicted = []
-            while len(self._ba_programs) > self.ba_graph_buckets:
-                evicted.append(self._ba_programs.popitem(last=False)[1])
-                self.ba_graph_counts["evicted"] += 1
-        for old in evicted:
-            old.wait()  # its last replay ends before its pool is given back
-        out = prog(prob, meta)
+        (``plslam_tpu.backend.ba.bundle_adjust_packed``: the fields' uploads,
+        the segment plans built from the index buffers, ``ba.bundle_adjust``
+        with both LM rounds and the chi^2 gate, the Plücker output, the
+        packed result), captured on the bucket's first solve.  The buffer
+        is a copy: a later replay of the bucket leaves it as it is."""
+        def solve(x):
+            dp = ba_mod.BAProblem(**{k: x.get(k) for k in ba_mod.BAProblem._fields})
+            if "lines_plucker" in x:
+                Lw = x["lines_plucker"]
+                scale = torch.linalg.norm(Lw, dim=-1)
+                dp = dp._replace(lines_scale=scale, lines_orth=plucker_to_orth(
+                    Lw / torch.clamp(scale, min=1e-12)[:, None]))
+            res = ba_mod.bundle_adjust(dp, self.cam, self.ba_cfg)
+            # the optimizer's 6-vector scale cancels in the ||d|| normalization
+            Lo = orth_to_plucker(res.problem.lines_orth)
+            Lo = Lo / torch.clamp(torch.linalg.norm(Lo[:, 3:], dim=-1), min=1e-12)[:, None]
+            f32 = torch.float32
+            return torch.cat([res.problem.T_c_w.reshape(-1), res.problem.points.reshape(-1),
+                              Lo.reshape(-1), res.p_active.to(f32), res.l_active.to(f32),
+                              res.cost.to(f32)[None]])
+
+        out = self._run_program("local_ba", solve, _local_ba_arrays(prob, meta))
         lay = (prob.T_c_w.shape[0], prob.points.shape[0], prob.lines_orth.shape[0],
                prob.p_cam.shape[0], prob.l_cam.shape[0])
         return out, lay
 
-    def ba_graph_stats(self) -> dict:
-        """Local-BA programs: built and evicted since start-up, the buckets
-        held and the bytes of their graphs' pools."""
-        with self._ba_lock:
-            progs = list(self._ba_programs.values())
-        return {**self.ba_graph_counts, "buckets": len(progs),
-                "captured": sum(p.program.captured for p in progs),
-                "pool_bytes": sum(p.program.pool_bytes() for p in progs)}
+    def graph_stats(self) -> dict:
+        """Per program kind: built and evicted since start-up, the buckets
+        held and the captured ones among them, captures and replays since
+        start-up, and the bytes of the held graphs' pools."""
+        return {kind: cache.stats() for kind, cache in self.programs.items()}
 
     @_locked
     def local_bundle_adjustment(self, defer: bool = False):
@@ -1626,8 +1636,13 @@ class MapHandler:
         prob, meta = self.build_local_ba()
         out, lay = self._solve_local(prob, meta)
         if defer:
+            done = None
+            if self.device.type == "cuda":
+                # the result's stream: flush_ba may run on another thread's
+                done = torch.cuda.Event()
+                done.record()
             with self._ba_lock:
-                self._ba_pending = (out, lay, meta)
+                self._ba_pending = (out, lay, meta, done)
             return None
         return self._finish_local_ba(out.cpu().numpy(), lay, meta)
 
@@ -1668,8 +1683,15 @@ class MapHandler:
         with self._ba_lock:
             pending, self._ba_pending = self._ba_pending, None
         if pending is not None:
-            out, lay, meta = pending
+            out, lay, meta, done = pending
+            self._after(done)
             self._finish_local_ba(out.cpu().numpy(), lay, meta)
+
+    def _after(self, done) -> None:
+        """Order this thread's stream after the event ``done`` (None: no
+        wait, on the CPU)."""
+        if done is not None:
+            torch.cuda.current_stream(self.device).wait_event(done)
 
     def _fetch_with_pending(self, out: torch.Tensor) -> np.ndarray:
         """Copy ``out`` to the host together with any deferred BA result
@@ -1678,7 +1700,8 @@ class MapHandler:
             pending, self._ba_pending = self._ba_pending, None
         if pending is None:
             return out.cpu().numpy()
-        pout, lay, meta = pending
+        pout, lay, meta, done = pending
+        self._after(done)
         both = torch.cat([pout, out]).cpu().numpy()
         self._finish_local_ba(both[: len(pout)], lay, meta)
         return both[len(pout):]

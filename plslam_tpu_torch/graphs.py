@@ -30,6 +30,13 @@ make that one copy).
 - On a CPU device, or with ``capture=False`` (the counterpart of
   ``jax.disable_jit``), a call runs the function itself, so the CPU tests
   exercise the code the graph captures.
+
+A ``StagedProgram`` is a ``Program`` whose inputs are host arrays (the
+counterpart of a jitted function called with numpy arguments): they are
+staged by dtype in one host buffer each (pinned on the card), uploaded
+inside the program into device buffers their views read, and a call
+returns a copy of the output.  A ``ProgramCache`` keeps such programs by
+shape bucket, the least recently used evicted.
 """
 
 from __future__ import annotations
@@ -37,8 +44,10 @@ from __future__ import annotations
 import gc
 import threading
 import weakref
+from collections import OrderedDict
 from typing import Callable, NamedTuple
 
+import numpy as np
 import torch
 
 from .ops import cuda_lib
@@ -132,6 +141,12 @@ class Program:
         return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
                    if tuple(seg.get("segment_pool_id", ())) == pool)
 
+    def release(self) -> None:
+        """Drop the graph and its outputs, out of any other thread's
+        capture (a graph destroyed mid-capture can invalidate it)."""
+        with _capture_lock:
+            self.graph = self.outputs = None
+
 
 def stats() -> dict:
     """Captures and replays since start-up, the live graphs and their pools' bytes."""
@@ -152,25 +167,64 @@ class Layout(NamedTuple):
     fields: tuple
 
 
+def layout_of(named: dict[str, torch.Tensor]) -> Layout:
+    """``pack``'s layout of ``named``: widest elements first, so every
+    field starts aligned to its element size."""
+    items = sorted(named.items(), key=lambda kv: -kv[1].element_size())
+    fields, off = [], 0
+    for name, t in items:
+        n = t.numel() * t.element_size()
+        fields.append((name, tuple(t.shape), t.dtype, off, n))
+        off += n
+    return Layout(tuple(fields))
+
+
+def pack_into(named: dict[str, torch.Tensor], layout: Layout, out: torch.Tensor) -> torch.Tensor:
+    """Write the bytes of ``named`` into the uint8 buffer ``out`` as
+    ``layout`` places them (one kernel)."""
+    return torch.cat([named[name].reshape(-1).view(torch.uint8)
+                      for name, *_ in layout.fields], out=out)
+
+
 def pack(named: dict[str, torch.Tensor]) -> tuple[torch.Tensor, Layout]:
     """Concatenate the bytes of several tensors into one uint8 buffer (one
-    kernel), widest elements first so every field starts aligned to its
-    element size.  ``unpack`` of a copy of the buffer gives views that no
-    later replay can change."""
-    items = sorted(named.items(), key=lambda kv: -kv[1].element_size())
-    parts, fields, off = [], [], 0
-    for name, t in items:
-        b = t.reshape(-1).view(torch.uint8)
-        parts.append(b)
-        fields.append((name, tuple(t.shape), t.dtype, off, b.numel()))
-        off += b.numel()
-    return torch.cat(parts), Layout(tuple(fields))
+    kernel; ``layout_of`` places them).  ``unpack`` of a copy of the
+    buffer gives views that no later replay can change."""
+    layout = layout_of(named)
+    return torch.cat([named[name].reshape(-1).view(torch.uint8)
+                      for name, *_ in layout.fields]), layout
 
 
 def unpack(buf: torch.Tensor, layout: Layout) -> dict[str, torch.Tensor]:
     """Views of ``buf`` as the tensors ``pack`` put in it (no kernel)."""
     return {name: buf[off:off + n].view(dtype).reshape(shape)
             for name, shape, dtype, off, n in layout.fields}
+
+
+def leaves(tree, prefix: str = "") -> dict[str, torch.Tensor]:
+    """A NamedTuple tree's tensors by dotted path (``points.uv``)."""
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree}
+    out = {}
+    for name, x in zip(tree._fields, tree):
+        out.update(leaves(x, f"{prefix}.{name}" if prefix else name))
+    return out
+
+
+def rebuild(like, named: dict[str, torch.Tensor], prefix: str = ""):
+    """The NamedTuple tree of ``like``'s structure whose leaves are
+    ``named``'s tensors by dotted path (the inverse of ``leaves``)."""
+    if isinstance(like, torch.Tensor):
+        return named[prefix]
+    return type(like)(*(rebuild(x, named, f"{prefix}.{name}" if prefix else name)
+                        for name, x in zip(like._fields, like)))
+
+
+def tree_pack_clone(tree):
+    """A copy of a NamedTuple tree of tensors in one kernel: its leaves are
+    views of one new byte buffer."""
+    buf, layout = pack(leaves(tree))
+    return rebuild(tree, unpack(buf, layout))
 
 
 def tree_clone(tree):
@@ -198,3 +252,153 @@ def same_layout(a, b) -> bool:
                 and a.shape == b.shape and a.dtype == b.dtype)
     return (type(a) is type(b) and len(a) == len(b)
             and all(same_layout(x, y) for x, y in zip(a, b)))
+
+
+def _torch_dtype(a: np.ndarray) -> torch.dtype:
+    return torch.from_numpy(np.zeros(0, a.dtype)).dtype
+
+
+class StagedProgram:
+    """``fn(inputs)`` as one ``Program`` over host arrays and device trees.
+
+    ``arrays`` (name -> numpy array) are packed by dtype into one host
+    staging buffer each, pinned on the card; the program uploads each into
+    a device buffer, and ``inputs[name]`` is the view of that buffer with
+    the array's shape and dtype.  ``trees`` (name -> NamedTuple tree of
+    device tensors) each get one static byte buffer, filled before the
+    replay by one kernel (``pack_into``); ``inputs[name]`` is the tree of
+    views of it.  ``fn`` must read its inputs only through ``inputs``.
+
+    A call waits for the previous replay (whose upload reads the staging
+    buffers), fills them, replays and returns a copy of the output, which
+    a later call leaves as it is.  On a CPU device or with ``capture=False``
+    the same code runs eagerly (``Program``)."""
+
+    def __init__(self, fn: Callable[[dict], torch.Tensor], arrays: dict, device, *,
+                 trees: dict | None = None, capture: bool = True):
+        dev = torch.device(device)
+        pinned = dev.type == "cuda"
+        self.fn = fn
+        self.slots = {}   # name -> (dtype, offset, shape)
+        sizes: dict = {}
+        for name, a in arrays.items():
+            dt = _torch_dtype(a)
+            self.slots[name] = (dt, sizes.get(dt, 0), a.shape)
+            sizes[dt] = sizes.get(dt, 0) + a.size
+        self.host = {dt: torch.empty(n, dtype=dt, pin_memory=pinned) for dt, n in sizes.items()}
+        self.host_np = {dt: h.numpy() for dt, h in self.host.items()}
+        self.dev = {dt: torch.empty(n, dtype=dt, device=dev) for dt, n in sizes.items()}
+        self.inputs = {name: self.dev[dt][off:off + int(np.prod(shape))].view(shape)
+                       for name, (dt, off, shape) in self.slots.items()}
+        self.layouts, self.buffers = {}, {}
+        for name, tree in (trees or {}).items():
+            lay = self.layouts[name] = layout_of(leaves(tree))
+            size = sum(f[4] for f in lay.fields)
+            buf = self.buffers[name] = torch.zeros(size, dtype=torch.uint8, device=dev)
+            self.inputs[name] = rebuild(tree, unpack(buf, lay))
+        self._done = None
+        # the capture's warm-up runs read the staging and tree buffers: this
+        # call's inputs, not what a reused pinned block held (indices out of range)
+        self._fill(arrays, trees or {})
+        self.program = Program(self._run, dev, capture=capture)
+
+    @staticmethod
+    def key(arrays: dict, trees: dict | None = None) -> tuple:
+        """The bucket: every array's name, shape and dtype, and every
+        tree's layout."""
+        return (tuple((k, a.shape, a.dtype.str) for k, a in arrays.items()),
+                tuple((k, layout_of(leaves(t))) for k, t in (trees or {}).items()))
+
+    def _run(self) -> torch.Tensor:
+        for dt, d in self.dev.items():
+            d.copy_(self.host[dt], non_blocking=True)
+        return self.fn(self.inputs)
+
+    def _fill(self, arrays: dict, trees: dict) -> None:
+        for name, a in arrays.items():
+            dt, off, _ = self.slots[name]
+            self.host_np[dt][off:off + a.size] = a.reshape(-1)
+        for name, tree in trees.items():
+            pack_into(leaves(tree), self.layouts[name], self.buffers[name])
+
+    def wait(self) -> None:
+        """Block until the last replay has run."""
+        if self._done is not None:
+            self._done.synchronize()
+
+    def __call__(self, arrays: dict, trees: dict | None = None) -> torch.Tensor:
+        self.wait()  # the staging buffers are the last replay's upload source
+        self._fill(arrays, trees or {})
+        out = self.program().clone()
+        if self.program.device.type == "cuda":
+            self._done = torch.cuda.Event()
+            self._done.record()
+        return out
+
+
+class ProgramCache:
+    """``StagedProgram``s by shape bucket, most recently used last; beyond
+    ``size`` the least recently used is evicted once its last replay has
+    run.  Counts the programs built and evicted, and the captures and
+    replays of those evicted."""
+
+    def __init__(self, size: int):
+        self.size = size
+        self._progs: OrderedDict = OrderedDict()
+        self._lock = threading.Lock()
+        self.counts = {"built": 0, "evicted": 0, "captures": 0, "replays": 0}
+
+    def get(self, key, build: Callable[[], StagedProgram]) -> StagedProgram:
+        """The program of ``key``, built by ``build()`` if not held."""
+        with self._lock:
+            prog = self._progs.pop(key, None)
+        if prog is None:
+            prog = build()
+            with self._lock:
+                self.counts["built"] += 1
+        with self._lock:
+            self._progs[key] = prog
+            evicted = []
+            while len(self._progs) > self.size:
+                evicted.append(self._progs.popitem(last=False)[1])
+        self._drop(evicted)
+        return prog
+
+    def _drop(self, progs: list) -> None:
+        for old in progs:
+            old.wait()  # its last replay ends before its pool is given back
+            with self._lock:
+                self.counts["evicted"] += 1
+                self.counts["captures"] += old.program.captured
+                self.counts["replays"] += old.program.replays
+            old.program.release()
+
+    def clear(self) -> None:
+        """Evict every program."""
+        with self._lock:
+            progs = list(self._progs.values())
+            self._progs.clear()
+        self._drop(progs)
+
+    def __iter__(self):
+        with self._lock:
+            return iter(list(self._progs))
+
+    def __reversed__(self):
+        with self._lock:
+            return iter(list(reversed(self._progs)))
+
+    def __len__(self) -> int:
+        return len(self._progs)
+
+    def stats(self) -> dict:
+        """Built and evicted since start-up, the buckets held, the captured
+        ones among them, captures and replays since start-up, and the bytes
+        of the held graphs' pools."""
+        with self._lock:
+            progs, counts = list(self._progs.values()), dict(self.counts)
+        return {"built": counts["built"], "evicted": counts["evicted"], "buckets": len(progs),
+                "captured": sum(p.program.captured for p in progs),
+                "captures": counts["captures"] + sum(p.program.captured for p in progs),
+                "replays": counts["replays"] + sum(p.program.replays for p in progs),
+                "pool_bytes": sum(p.program.pool_bytes() for p in progs)}

@@ -6,7 +6,10 @@ keyframe MapHandler::addKeyFrame, at the end globalBundleAdjustment
 
 With loop closure (endpoint-line mode only, as in the reference) a third
 thread, ``plslam-loopcloser``, encodes every keyframe and closes loops off
-the mapping thread.  Checkpoints save and restore the map and the loop
+the mapping thread.  On the card each worker issues its device work on a
+stream of its own, so a keyframe's association and local BA run beside
+the tracker's frames rather than ahead of them in one queue; a job waits
+for the submitting stream's work on its features first.  Checkpoints save and restore the map and the loop
 closer's state in the JAX package's layout.  ``viz_every_kf`` rewrites a
 live scene HTML from the mapping thread under the map lock, and
 ``overlay_every`` renders a diagnosis overlay and a residual record of every
@@ -18,6 +21,7 @@ never stops mapping or tracking.  ``finish(mesh=)`` and
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -114,33 +118,46 @@ class PLSLAM:
 
     # -- worker threads ----------------------------------------------------
 
+    def _worker_stream(self):
+        """The calling worker thread's own stream on the card (PyTorch's
+        current stream is per thread)."""
+        if self.device.type != "cuda":
+            return contextlib.nullcontext()
+        return torch.cuda.stream(torch.cuda.Stream(self.device))
+
     def _mapping_worker(self):
-        """Pop (pose, features) jobs until the None sentinel
+        """Pop (pose, features, ready event) jobs until the None sentinel
         (mapHandler.cpp:1229-1248)."""
-        while True:
-            job = self._kf_queue.get()
-            try:
-                if job is None:
-                    return
-                self._insert_keyframe(*job)
-            except BaseException as e:  # surfaced at finish()
-                self._map_errors.append(e)
-            finally:
-                self._kf_queue.task_done()
+        with self._worker_stream():
+            while True:
+                job = self._kf_queue.get()
+                try:
+                    if job is None:
+                        return
+                    pose, feats, ready = job
+                    if ready is not None:
+                        torch.cuda.current_stream(self.device).wait_event(ready)
+                    self._insert_keyframe(pose, feats)
+                except BaseException as e:  # surfaced at finish()
+                    self._map_errors.append(e)
+                finally:
+                    self._kf_queue.task_done()
 
     def _lc_worker(self):
         """Pop keyframe ids until the None sentinel; a closure's correction
-        is the only step that takes the map lock (``LoopCloser``)."""
-        while True:
-            kf_id = self._lc_queue.get()
-            try:
-                if kf_id is None:
-                    return
-                self._close_loops(kf_id)
-            except BaseException as e:  # surfaced at finish()
-                self._map_errors.append(e)
-            finally:
-                self._lc_queue.task_done()
+        is the only step that takes the map lock (``LoopCloser``).  It
+        reads host copies only, so its stream waits for no other."""
+        with self._worker_stream():
+            while True:
+                kf_id = self._lc_queue.get()
+                try:
+                    if kf_id is None:
+                        return
+                    self._close_loops(kf_id)
+                except BaseException as e:  # surfaced at finish()
+                    self._map_errors.append(e)
+                finally:
+                    self._lc_queue.task_done()
 
     def _close_loops(self, kf_id: int):
         report = self.loop_closer.on_new_keyframe(kf_id)
@@ -177,7 +194,12 @@ class PLSLAM:
 
     def _submit(self, pose, feats):
         if self._kf_queue is not None:
-            self._kf_queue.put((pose, feats))
+            ready = None
+            if self.device.type == "cuda":
+                # the features' producing work on this thread's stream
+                ready = torch.cuda.Event()
+                ready.record()
+            self._kf_queue.put((pose, feats, ready))
         else:
             self._insert_keyframe(pose, feats)
 

@@ -154,7 +154,9 @@ class GraphedStep:
 
     @property
     def current_features(self) -> StereoFeatures:
-        return graphs.tree_clone(self._state.features)
+        """A copy of the current features, its fields views of one buffer
+        (one kernel)."""
+        return graphs.tree_pack_clone(self._state.features)
 
     @property
     def pose(self) -> torch.Tensor:

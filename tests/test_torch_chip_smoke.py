@@ -2,11 +2,9 @@
 (``plslam_tpu_torch/io/ring_world.py``; the card's machine has no jax, so
 the script cannot import tests/_map_fixtures) give the same arrays as the
 fixtures for the same world, poses and descriptor noise stream; the
-script refuses to run without CUDA; and its phases rehearsed on the CPU at
-small sizes."""
-
-import importlib.util
-import os
+script refuses to run without CUDA; and the helpers its phases share.
+The phase rehearsals on the CPU have a file each
+(``tests/test_torch_chip_smoke_{batch,disk,dist,eval}.py``)."""
 
 import numpy as np
 import pytest
@@ -14,11 +12,9 @@ import torch
 
 import _map_fixtures as fx
 from plslam_tpu_torch.io import ring_world
+from test_torch_helpers import load_chip_smoke
 
-SPEC = importlib.util.spec_from_file_location(
-    "chip_smoke", os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py"))
-chip_smoke = importlib.util.module_from_spec(SPEC)
-SPEC.loader.exec_module(chip_smoke)
+chip_smoke = load_chip_smoke()
 
 
 def test_ring_world_matches_fixture():
@@ -137,36 +133,6 @@ def test_refuses_modules_of_the_jax_package(monkeypatch):
         chip_smoke.assert_no_jax()
 
 
-def test_disk_phase_on_the_cpu(tmp_path, monkeypatch):
-    """Phase 9 rehearsed on the CPU at the mini fixture's size (376x240, 9
-    frames, diagnostics of frames 4 and 8): the CLI run and every check but
-    the kernels' launch counts, the device timers and the card itself."""
-    import subprocess
-    import sys
-
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
-    monkeypatch.setattr(chip_smoke, "graph_ms", lambda fn, *a: (fn(), 0.0)[1])
-    monkeypatch.setattr(chip_smoke, "median_ms", lambda fn, *a: (fn(), 0.0)[1])
-    monkeypatch.setattr(chip_smoke, "KERNEL_WRAPPERS", ())
-    # this process loaded JAX for the parity tests (the check is tested above)
-    monkeypatch.setattr(chip_smoke, "assert_no_jax", lambda: None)
-    monkeypatch.setattr(chip_smoke, "DISK_FRAMES", 9)
-    monkeypatch.setattr(chip_smoke, "DISK_OVERLAY_EVERY", 4)
-    find_spec = importlib.util.find_spec
-    monkeypatch.setattr(importlib.util, "find_spec",
-                        lambda name, *a: None if name == "matplotlib" else find_spec(name, *a))
-    fixture = str(tmp_path / "disk")
-    writer = subprocess.Popen([sys.executable, "-m", "plslam_tpu_torch.io.mini_euroc", fixture,
-                               "--frames", "9"], cwd=chip_smoke.ROOT, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-    chip_smoke.wait_disk_fixture(writer)
-    by_thread, fps, ate, remap_us = chip_smoke.phase_disk(torch.device("cpu"), "CPU", fixture)
-    assert fps > 0 and ate <= chip_smoke.DISK_ATE_FLOOR and remap_us == 0.0
-    assert set(by_thread) == set(chip_smoke._wrappers())
-    with open(os.path.join(fixture, "residuals.jsonl")) as f:
-        assert len(f.readlines()) == 2
-
-
 def test_render_depth_matches_fixture():
     """Phase 10's numpy copy of tests/test_rgbd.render_depth."""
     from plslam_tpu.io.synthetic import SyntheticScene as JScene
@@ -176,134 +142,3 @@ def test_render_depth_matches_fixture():
     T = np.eye(4)
     T[:3, 3] = (0.02, -0.01, 0.1)
     np.testing.assert_array_equal(chip_smoke.render_depth(scene, T), render_depth(scene, T))
-
-
-def test_batch_phase_on_the_cpu(monkeypatch):
-    """Phase 10 rehearsed on the CPU at 376x240 (2 streams, 512 points,
-    128 line slots, 1 + 1 + 2 frames, B in 1 and 2, the ATE floors at
-    B = 2 against generous stand-ins): the worker-process render, the
-    sweep, the single-stream agreement and the RGB-D track; not the
-    kernels' launch counts, the device timers or the card."""
-    import sys
-
-    monkeypatch.setitem(sys.modules, "chip_smoke", chip_smoke)   # the workers import it
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
-    monkeypatch.setattr(torch.cuda, "set_sync_debug_mode", lambda *a, **k: None)
-    monkeypatch.setattr(chip_smoke, "KERNEL_WRAPPERS", ())
-    monkeypatch.setattr(chip_smoke, "BATCH_SIZES", (1, 2))
-    monkeypatch.setattr(chip_smoke, "BATCH_WARMUP", 1)
-    monkeypatch.setattr(chip_smoke, "BATCH_FRAMES", 2)
-    monkeypatch.setattr(chip_smoke, "BATCH_SCENE", dict(n_points=300, n_lines=40, width=376,
-                                                       height=240, fx=217.6, fy=217.6,
-                                                       cx=183.7, cy=126.1))
-    monkeypatch.setattr(chip_smoke, "BATCH_WIDTHS", dict(n_points=512, n_lines=128))
-    monkeypatch.setattr(chip_smoke, "BATCH_ATE_B", 2)
-    monkeypatch.setattr(chip_smoke, "JAX_CPU_BATCH_ATE", (0.05, 0.05))
-    monkeypatch.setattr(chip_smoke, "RENDER_WORKERS", 2)
-    streams = chip_smoke.wait_batch_render(chip_smoke.start_batch_render())
-    assert len(streams) == 2 and streams[0].shape == (4, 2, 240, 376)
-    launches, rows, ates = chip_smoke.phase_batch(torch.device("cpu"), "CPU", streams)
-    assert set(launches) == set(chip_smoke._wrappers()) and set(rows) == {1, 2}
-    assert rows[2]["good"] == rows[2]["frames"] == 6 and len(ates) == 2
-    launches, err = chip_smoke.phase_rgbd(torch.device("cpu"), "CPU")
-    assert err < 0.02 and not any(launches.values())
-
-
-# phase 11 at CPU sizes: the dry run's programs cut small, 2 streams at
-# 376x240 and one frame after initialize
-SMALL_DIST = dict(ba=dict(K=8, P=256, L=32, obs_k=4), iters=2, q=160, masked=0.05, pgo_k=32,
-                  pgo_iters=5, ring=dict(rng_seed=3, n_kf=16, n_pts=800, n_ls=80, pose_noise=0.01,
-                                         lm_noise=0.03),
-                  b=2, frames=1, widths=dict(n_points=512, n_lines=128),
-                  scene=dict(n_points=300, n_lines=40, width=376, height=240, fx=217.6,
-                             fy=217.6, cx=183.7, cy=126.1))
-
-
-def test_dist_phase_on_the_cpu():
-    """Phase 11 rehearsed on the CPU with gloo at world 1 (SMALL_DIST):
-    every program against its single-device counterpart, the sharded batch
-    bit-identical to the unsharded one; not the kernels' launch counts or
-    the card."""
-    streams = [chip_smoke.render_stream(s, 2, SMALL_DIST["scene"]) for s in range(2)]
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        launches, ms = chip_smoke.phase_dist(torch.device("cpu"), "CPU", streams, SMALL_DIST)
-    finally:
-        torch.set_num_threads(threads)
-    assert set(launches) == set(chip_smoke._wrappers()) and not any(launches.values())
-    assert {"dist_ba", "dist_ba_2d", "dist_match", "dist_pgo", "dist_gba 1-axis",
-            "dist_gba 2-axis", "dist_batch_vo", "batch_vo"} <= set(ms)
-    assert not torch.distributed.is_initialized()
-
-
-@pytest.fixture
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
-def test_eval_phase_on_the_cpu(monkeypatch, one_thread):
-    """Phase 12 rehearsed on the CPU at small sizes: the worker render of the
-    nuisance frames (2 workers, 376x240, 6 frames), each program through
-    its main with its checks against stand-in JAX values that hold at this
-    size (the module tests hold the programs against JAX itself), the
-    loop stress cut to 40 + 24 + 12 keyframes, the oracle cut to the
-    256-point ring and 3 iterations; not the kernels' launch counts or the
-    card."""
-    import sys
-
-    from plslam_tpu_torch import (compare_line_modes, e2e_robust, endpoint_gba_ab,
-                                  line_match_quality, loop_stress)
-
-    monkeypatch.setitem(sys.modules, "chip_smoke", chip_smoke)
-    # one thread throughout (one_thread): the f32 solves move with the
-    # order of their sums, so the stand-ins are made as the phase runs
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
-    monkeypatch.setattr(chip_smoke, "KERNEL_WRAPPERS", ())
-    monkeypatch.setattr(chip_smoke, "RENDER_WORKERS", 2)
-    monkeypatch.setattr(chip_smoke, "EVAL_FRAMES", 6)
-    small = dict(width=376, height=240, fx=217.6, fy=217.6, cx=183.7, cy=126.1)
-    make_scene = e2e_robust.make_scene
-    monkeypatch.setattr(e2e_robust, "make_scene", lambda size=None: make_scene(small))
-    monkeypatch.setattr(chip_smoke, "JAX_CPU_E2E", {"plucker": (5, 2, 0.01, 0.01),
-                                                    "endpoint": (5, 2, 0.01, 0.01)})
-    # the line-mode comparison at 5 frames, the harness's first two rows at
-    # 1 scene x 1 step
-    cmp_main = compare_line_modes.main
-    monkeypatch.setattr(compare_line_modes, "main", lambda argv: cmp_main(argv, n_frames=5))
-    monkeypatch.setattr(chip_smoke, "JAX_CPU_COMPARE", {"endpoint": 0.03, "plucker": 0.03})
-    run = line_match_quality.run
-    monkeypatch.setattr(line_match_quality, "run",
-                        lambda cfg, **kw: run(cfg, n_scenes=1, n_steps=1, **kw))
-    monkeypatch.setattr(line_match_quality, "CONFIGS", line_match_quality.CONFIGS[:2])
-    rows = [run(line_match_quality.FrontendConfig(), n_scenes=1, n_steps=1, label=label,
-                device="cpu", **kw) for label, kw in line_match_quality.CONFIGS]
-    monkeypatch.setattr(chip_smoke, "JAX_CPU_LMQ", tuple(
-        (r["label"], r["matches"], r["correct"]) for r in rows))
-    build, lm = endpoint_gba_ab.build, endpoint_gba_ab.faithful_endpoint_lm
-    monkeypatch.setattr(endpoint_gba_ab, "build", lambda plucker, device: build(
-        plucker, device, n_kf=16, n_pts=256, n_ls=64))
-    monkeypatch.setattr(endpoint_gba_ab, "faithful_endpoint_lm", lambda m, timings: lm(
-        m, iters=3, timings=timings))
-    # the oracle's and the endpoint GBA's stand-ins are their own values;
-    # the Plücker GBA is held to the error before it
-    mapper, (_, truth) = build(False, "cpu", n_kf=16, n_pts=256, n_ls=64)
-    ref = lm(mapper, iters=3)
-    mapper.global_bundle_adjustment()
-    monkeypatch.setattr(chip_smoke, "JAX_CPU_GBA", dict(
-        ours_plucker=1.0, ours_endpoint=endpoint_gba_ab.pt_err(mapper, truth),
-        oracle_pt=float(np.median(np.linalg.norm(ref[1] - truth[ref[3]], axis=1))),
-        oracle_last=ref[4][-1], oracle_iters=3))
-    stress = loop_stress.main
-    monkeypatch.setattr(loop_stress, "main", lambda argv: stress(
-        argv, n_a1=40, n_b=24, n_a2=12, vocab_refresh_kfs=16, ring_steps=100))
-    frames = chip_smoke.wait_eval_render(chip_smoke.start_eval_render())
-    assert len(frames) == 6 and frames[0][0].shape == (240, 376)
-    launches, summary = chip_smoke.phase_eval(torch.device("cpu"), "CPU", frames)
-    assert set(launches) == set(chip_smoke._wrappers())
-    assert set(summary) == {"e2e", "e2e_gap", "compare_diff", "lmq_production", "gba",
-                            "closures"}
-    assert summary["closures"]

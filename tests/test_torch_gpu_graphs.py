@@ -1,7 +1,9 @@
-"""The captured per-frame programs on the card (``plslam_tpu_torch.graphs``):
-graphed and eager (``capture=False``) VO, batched VO and local BA bit for
-bit, the launch accounting of replays, and a capture that fails raising
-instead of running eagerly.
+"""The captured programs on the card (``plslam_tpu_torch.graphs``): graphed
+and eager (``capture=False``) VO, batched VO, local BA, the mapper's
+per-keyframe programs (the fused association, KF2KF, Map2KF, the
+refinement) and the loop closer's BoW transform bit for bit, the launch
+accounting of replays, and a capture that fails raising instead of
+running eagerly.
 
 Marked ``gpu``; each test skips when no CUDA device is present.  On a
 machine with one (``--noconftest``: its tests/conftest.py imports jax):
@@ -17,8 +19,12 @@ import numpy as np
 import pytest
 import torch
 
+import _program_inputs as pi
 from plslam_tpu_torch import graphs
-from plslam_tpu_torch.backend.mapping import MapConfig, MapHandler
+from plslam_tpu_torch.backend import vocab
+from plslam_tpu_torch.backend.loop import LoopCloser, LoopConfig
+from plslam_tpu_torch.backend.mapping import KeyframeRecord, MapConfig, MapHandler
+from plslam_tpu_torch.convert import stereo_features_from_numpy
 from plslam_tpu_torch.batch_vo import BatchedVisualOdometry
 from plslam_tpu_torch.core.camera import StereoCamera
 from plslam_tpu_torch.frontend.frame import FrontendConfig
@@ -113,13 +119,71 @@ def test_graphed_local_ba_equals_eager(dev):
         out, _ = mapper._solve_local(prob, {"lines_plucker": None})
         outs.append((mapper, out))
     (gm, gout), (_, eout) = outs
-    assert gm.ba_graph_stats()["captured"] == 1
+    assert gm.graph_stats()["local_ba"]["captured"] == 1
     assert chip_smoke.bits_equal(gout, eout)
     keep = gout.clone()
     moved = prob._replace(points=prob.points + np.float32(0.01))
     again, _ = gm._solve_local(moved, {"lines_plucker": None})
-    assert gm.ba_graph_stats()["built"] == 1
+    assert gm.graph_stats()["local_ba"]["built"] == 1
     assert chip_smoke.bits_equal(gout, keep) and not chip_smoke.bits_equal(again, gout)
+
+
+def _keyframe_programs(mapper, dev, seed):
+    """Each of the mapper's per-keyframe programs once on tests/
+    _program_inputs.py's inputs (seeded; each seed its own keyframe pair
+    on the ring), as host copies."""
+    pair = pi.keyframe_pair(seed, theta=0.3 + 0.2 * seed)
+    world, T0, T1, f0, f1 = pair
+    Tm, cpack, dpack, cval, pt_lm, ls_lm, pf = pi.assoc_inputs(pair, seed)
+    prev = KeyframeRecord(0, T0, stereo_features_from_numpy(f0, dev))
+    prev.pt_lm, prev.ls_lm = pt_lm, ls_lm
+    dk = stereo_features_from_numpy(f1, dev)
+    vpack = np.concatenate([cval, pi.free_mask(seed, f1)])
+    T_c_w = np.linalg.inv(T1).astype(np.float32)
+    return {"assoc": mapper._assoc(prev, dk, Tm, cpack, dpack, cval, pf, 256, 64).cpu(),
+            "kf2kf": mapper._kf2kf(prev, dk, Tm[0]).cpu(),
+            "map2kf": mapper._map2kf(dk, T_c_w, cpack, dpack, vpack, 256, 64).cpu(),
+            "refine": mapper._refine(pi.refine_arrays(seed, f0, T0, T1)).cpu()}
+
+
+@pytest.mark.parametrize("plucker", [True, False])
+def test_graphed_keyframe_programs_equal_eager(dev, plucker):
+    """The fused association, KF2KF, Map2KF and the refinement, graphed and
+    eager, on two keyframe pairs: one capture per program kind (on the
+    first call, which then replays), every output bit for bit."""
+    cfg = MapConfig(plucker_lines=plucker, has_refinement=not plucker)
+    runs = []
+    for capture in (True, False):
+        mapper = MapHandler(pi.port_camera(), cfg, device=dev, capture=capture)
+        runs.append((mapper, [_keyframe_programs(mapper, dev, seed) for seed in (0, 1)]))
+    (gm, gouts), (_, eouts) = runs
+    stats = gm.graph_stats()
+    for kind in ("assoc", "kf2kf", "map2kf", "refine"):
+        assert (stats[kind]["captured"], stats[kind]["replays"]) == (1, 2), (kind, stats[kind])
+        for g, e in zip(gouts, eouts):
+            assert chip_smoke.bits_equal(g[kind], e[kind]), kind
+        assert not chip_smoke.bits_equal(gouts[0][kind], gouts[1][kind]), kind
+
+
+def test_graphed_bow_transform_equals_eager(dev):
+    """The shipped DBoW2 point and line vocabularies' transforms, graphed
+    and eager, on two descriptor sets each."""
+    outs = []
+    for capture in (True, False):
+        mapper = MapHandler(pi.port_camera(), MapConfig(plucker_lines=False), device=dev,
+                            capture=capture)
+        lc = LoopCloser(pi.port_camera(), mapper, LoopConfig())
+        lc.voc = vocab.load_dbow2_vocabulary(
+            os.path.join(ROOT, "configs", "vocab_orb_k10L3.yml.gz")).to(dev)
+        lc.voc_l = vocab.load_dbow2_vocabulary(
+            os.path.join(ROOT, "configs", "vocab_lbd_k10L3.yml.gz")).to(dev)
+        outs.append([lc._transform(w, *pi.descriptors(s, n, n // 2)).cpu()
+                     for s in (0, 1) for w, n in (("p", 1200), ("l", 256))])
+        if capture:
+            st = lc.programs.stats()
+            assert (st["captured"], st["replays"]) == (2, 4), st
+    for g, e in zip(*outs):
+        assert chip_smoke.bits_equal(g, e)
 
 
 def test_replays_count_their_launches(dev):

@@ -212,8 +212,9 @@ def test_local_ba_program_equals_eager_bundle_adjust(plucker):
     out, lay = mapper._solve_local(prob, meta)
     assert lay == (5, 30, 12, 150, 60)
     assert bits_equal(out, _eager_solve(prob, meta, mapper.ba_cfg))
-    assert mapper.ba_graph_stats() == {"built": 1, "evicted": 0, "buckets": 1,
-                                       "captured": 0, "pool_bytes": 0}
+    assert mapper.graph_stats()["local_ba"] == {"built": 1, "evicted": 0, "buckets": 1,
+                                                "captured": 0, "captures": 0, "replays": 0,
+                                                "pool_bytes": 0}
 
 
 def test_deferred_result_survives_a_later_solve_of_its_bucket():
@@ -223,26 +224,27 @@ def test_deferred_result_survives_a_later_solve_of_its_bucket():
     out1, _ = mapper._solve_local(p1, m1)
     keep = out1.clone()
     out2, _ = mapper._solve_local(p2, m2)
-    assert mapper.ba_graph_stats()["built"] == 1      # one bucket, replayed
+    assert mapper.graph_stats()["local_ba"]["built"] == 1      # one bucket, replayed
     assert bits_equal(out1, keep) and not bits_equal(out1, out2)
     assert bits_equal(out2, _eager_solve(p2, m2, mapper.ba_cfg))
 
 
 def test_bucket_cache_evicts_the_least_recent():
     mapper = _mapper()
-    mapper.ba_graph_buckets = 2
+    cache = mapper.programs["local_ba"]
+    cache.size = 2
     probs = [_np_problem(P=p) for p in (20, 24, 28)]
     keys = []
     for pm in probs:
         mapper._solve_local(*pm)
-        keys.append(next(reversed(mapper._ba_programs)))
-    assert list(mapper._ba_programs) == keys[1:]
-    assert mapper.ba_graph_stats()["evicted"] == 1
+        keys.append(next(reversed(cache)))
+    assert list(cache) == keys[1:]
+    assert cache.stats()["evicted"] == 1
     mapper._solve_local(*probs[1])                     # the most recent again
-    assert list(mapper._ba_programs) == [keys[2], keys[1]]
+    assert list(cache) == [keys[2], keys[1]]
     mapper._solve_local(*probs[0])                     # built again, evicts keys[2]
-    assert list(mapper._ba_programs) == [keys[1], keys[0]]
-    assert mapper.ba_graph_stats()["built"] == 4
+    assert list(cache) == [keys[1], keys[0]]
+    assert cache.stats()["built"] == 4
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,133 @@
+"""The loop closer's BoW transform on the CPU, through its static-buffer
+program (``graphs.StagedProgram``: the code the card captures), against
+the JAX package's ``vocab.transform`` (its ``_tf`` / ``_tf_l`` jit) on the
+same seeded descriptors (tests/_program_inputs.py): exact with a tf
+vocabulary trained on both sides from the same draws; within 1e-6
+relative with the shipped DBoW2 tf-idf vocabulary, whose normalizing sum
+the two packages add in different orders.  Also: one program per
+(vocabulary, N), a result that survives the next call, the LRU's
+eviction, and a vocabulary retrain dropping the programs built on the old
+vocabulary."""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import _program_inputs as pi
+from plslam_tpu.backend import vocab as jvocab
+from plslam_tpu_torch.backend import vocab as tvocab
+from plslam_tpu_torch.backend.loop import LoopCloser, LoopConfig
+from plslam_tpu_torch.backend.mapping import (GRAPH_BUCKETS, KeyframeRecord, MapConfig,
+                                              MapHandler)
+from plslam_tpu_torch.convert import stereo_features_from_numpy
+
+from test_torch_helpers import bits_equal, one_torch_thread  # noqa: F401
+
+CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
+N_KF = 14
+
+
+def _jax_voc(voc: tvocab.Vocabulary) -> jvocab.Vocabulary:
+    return jvocab.Vocabulary(
+        levels=tuple(jnp.asarray(lv.numpy().view(np.uint32)) for lv in voc.levels),
+        k=voc.k, depth=voc.depth,
+        word_weight=None if voc.word_weight is None else jnp.asarray(voc.word_weight.numpy()))
+
+
+@pytest.fixture(scope="module")
+def closer():
+    """A loop closer over N_KF ring keyframes' host records, its point
+    vocabulary trained online (k 8, depth 3) and its line vocabulary
+    (k 8, depth 2) from their descriptors."""
+    world = pi.keyframe_pair()[0]
+    rng = np.random.default_rng(0)
+    mapper = MapHandler(pi.port_camera(), MapConfig(plucker_lines=False), device="cpu")
+    for i in range(N_KF):
+        T = world.pose_at(0.3 + 0.04 * i)
+        f = pi.render_ring_features(world, T, pi.CAM_K, rng)
+        mapper.map.keyframes.append(KeyframeRecord(i, T, stereo_features_from_numpy(f, "cpu")))
+    mapper.map.expand_graphs()
+    lc = LoopCloser(pi.port_camera(), mapper, LoopConfig(vocab_refresh_kfs=0))
+    assert lc._ensure_vocab(N_KF - 1) and lc.voc_l is not None
+    return lc
+
+
+def test_bow_program_equals_jax_transform_tf(closer):
+    """Points and lines through the closer's programs, exactly JAX's."""
+    for which, voc in (("p", closer.voc), ("l", closer.voc_l)):
+        desc, valid = pi.descriptors(1, 160 if which == "p" else 24, 100 if which == "p" else 20)
+        got = closer._transform(which, desc, valid).numpy()
+        jv = _jax_voc(voc)
+        tf = jax.jit(lambda d, v: jvocab.transform(jv, d, v))   # the JAX closer's _tf
+        want = np.asarray(tf(jnp.asarray(desc.view(np.uint32)), jnp.asarray(valid)))
+        np.testing.assert_array_equal(got, want)
+        assert got.sum() == pytest.approx(1.0) and (got > 0).sum() > 5
+
+
+def test_bow_program_equals_jax_transform_tf_idf():
+    """The shipped DBoW2 point vocabulary (tf-idf weights) on both sides."""
+    path = os.path.join(CONFIGS, "vocab_orb_k10L3.yml.gz")
+    voc = tvocab.load_dbow2_vocabulary(path)
+    jvoc = jvocab.load_dbow2_vocabulary(path)
+    mapper = MapHandler(pi.port_camera(), MapConfig(plucker_lines=False), device="cpu")
+    lc = LoopCloser(pi.port_camera(), mapper, LoopConfig())
+    lc.voc = voc
+    desc, valid = pi.descriptors(2, 160, 120)
+    got = lc._transform("p", desc, valid).numpy()
+    want = np.asarray(jvocab.transform(jvoc, jnp.asarray(desc.view(np.uint32)),
+                                       jnp.asarray(valid)))
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(got > 0, want > 0)
+
+
+def test_bow_programs_per_vocabulary_and_width(closer):
+    """``_bow_of`` runs the point and the line program; a second keyframe
+    replays them; a new width builds a third; each result survives the
+    next call."""
+    closer.programs.clear()
+    base = closer.programs.stats()["built"]
+    kfs = closer.mapper.map.keyframes
+    a = closer._bow_of(kfs[0])
+    keep = a["p"].copy()
+    b = closer._bow_of(kfs[1])
+    assert closer.programs.stats()["built"] - base == 2 and len(closer.programs) == 2
+    assert np.array_equal(a["p"], keep) and not np.array_equal(a["p"], b["p"])
+    d1, v1 = pi.descriptors(3, 160, 90)
+    out1 = closer._transform("p", d1, v1)
+    keep = out1.clone()
+    closer._transform("p", *pi.descriptors(4, 160, 90))
+    assert bits_equal(out1, keep)
+    closer._transform("p", *pi.descriptors(5, 96, 50))
+    assert closer.programs.stats()["built"] - base == 3
+
+
+def test_bow_program_cache_evicts_the_least_recent(closer):
+    closer.programs.clear()
+    closer.programs.size = 1
+    try:
+        ev = closer.programs.stats()["evicted"]
+        closer._bow_of(closer.mapper.map.keyframes[2])   # the point, then the line program
+        assert closer.programs.stats()["evicted"] - ev == 1 and len(closer.programs) == 1
+        assert next(iter(closer.programs))[0] == "l"
+    finally:
+        closer.programs.size = GRAPH_BUCKETS
+
+
+def test_retrain_drops_the_old_vocabulary_programs(closer):
+    """An online retrain re-encodes every keyframe on programs of the new
+    vocabularies; those of the old ones are gone."""
+    closer._bow_of(closer.mapper.map.keyframes[0])
+    old_voc = closer.voc
+    closer._retrain_vocabulary(N_KF - 1)
+    assert closer.voc is not old_voc
+    ids = {key[1] for key in closer.programs}
+    assert ids <= {id(closer.voc), id(closer.voc_l)} and id(old_voc) not in ids
+    assert len(closer.bow) == N_KF
+    kf = closer.mapper.map.keyframes[0]
+    want = tvocab.transform(closer.voc, torch.from_numpy(kf.pt_desc.copy()),
+                            torch.from_numpy(kf.pt_valid.copy()))
+    np.testing.assert_array_equal(closer.bow[0]["p"], want.numpy())

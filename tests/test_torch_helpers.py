@@ -133,3 +133,36 @@ def ate_within_jax(got, want, poses):
     ate_j = ate_rmse(np.stack([np.asarray(T)[..., :3, 3] for T in want]).reshape(-1, 3),
                      gt, align=False)
     assert ate_t <= max(2.0 * ate_j, 0.01), (ate_t, ate_j)
+
+
+# -- chip_smoke.py's phase rehearsals (tests/test_torch_chip_smoke*.py) --------
+
+
+def load_chip_smoke():
+    """chip_smoke.py, at the repository's root, loaded as a module."""
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(__file__), "..", "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# phase 11 at CPU sizes: the dry run's programs cut small, 2 streams at
+# 376x240 and one frame after initialize
+SMALL_DIST = dict(ba=dict(K=8, P=256, L=32, obs_k=4), iters=2, q=160, masked=0.05, pgo_k=32,
+                  pgo_iters=5, ring=dict(rng_seed=3, n_kf=16, n_pts=800, n_ls=80, pose_noise=0.01,
+                                         lm_noise=0.03),
+                  b=2, frames=1, widths=dict(n_points=512, n_lines=128),
+                  scene=dict(n_points=300, n_lines=40, width=376, height=240, fx=217.6,
+                             fy=217.6, cx=183.7, cy=126.1))
+
+
+@pytest.fixture
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)

@@ -126,12 +126,12 @@ def test_initialize_distributed_joins_a_file_group(tmp_path):
 
 def test_chip_smoke_phase_11_over_four_ranks():
     """chip_smoke's phase 11 over four ranks (test_torch_gpu_dist.py's path
-    over four cards) rehearsed in 4 gloo ranks (test_torch_chip_smoke's
+    over four cards) rehearsed in 4 gloo ranks (test_torch_helpers'
     SMALL_DIST, 4 streams: one per rank): every program against its
     single-device form on each rank, a (2, 2) mesh, the kf-block GBA bit
     for bit the chunked GBA on the same partition, the sharded batch within
     phase 10's bars of the unsharded one."""
-    from test_torch_chip_smoke import SMALL_DIST
+    from test_torch_helpers import SMALL_DIST
 
     outs = launch("torch_dist_ranks:run_chip_smoke_phase_11", 4,
                   {"device": "cpu", "smi": "CPU", "cfg": dict(SMALL_DIST, b=4)}, timeout=240,
