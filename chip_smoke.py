@@ -40,6 +40,12 @@ Phases, each reported on its own lines:
      profiler (host CUDA calls, graph launches, device kernels and ms per
      keyframe); a third, graphed run's timed frames under the profiler
      (device busy, kernels per frame, the kernels taking the most time);
+     the GBA at finish of both forms: wall ms, its trips run eagerly (the
+     capture's warm-ups) and by replay of the one captured LM trip (all
+     but the 2 warm-ups of 15 graphed, none eager), the trip graph's pool
+     bytes, and a rerun on a copy of the map it met under the profiler
+     (device-busy ms, kernels, host CUDA calls) that must leave the same
+     poses;
   6. local BA: LM iterations/s of ``lm_rounds`` (f32, K=8, P=512, L=64),
      eager and as one CUDA graph; the graphed iterates and the graphed
      ``bundle_adjust`` bit for bit the eager ones;
@@ -50,7 +56,7 @@ Phases, each reported on its own lines:
      no loop (20 frames lie under ``lc_kf_dist``), keyframe ATE under the
      floor; the Hamming kernel launched from the mapping thread; the split
      association (KF2KF, Map2KF), the refinement and the BoW transform
-     captured; phase 5's program counts and mapping profile;
+     captured; phase 5's program counts, mapping profile and GBA report;
   8. loop closure at reference scale: the 156-keyframe ring replay of
      tests/test_scale_e2e.py through ``insert_keyframe_features`` (drifted
      odometry, ``lc_kf_dist=50``, online vocabulary), graphed beside eager,
@@ -59,11 +65,15 @@ Phases, each reported on its own lines:
      multi-chunk endpoint GBA at finish, the Hamming kernel launched from
      the loop-closure thread; keyframes/s and per program kind captures,
      replays and pool bytes; the association, local-BA and BoW programs
-     captured; the two runs' keyframe trajectories bit for bit unless
-     their closures corrected maps of different keyframes (the loop
-     closer corrects the map it finds when its verification ends, so the
-     threads' timing moves the result); on the same maps a difference
-     fails unless a second eager run differs from the first too;
+     captured; the GBA's ms and trips, each closure's PGO ms and
+     iterations run eagerly and by replay (graphed: all but the 2
+     warm-ups of 25), every candidate's verification ms and the pose
+     solve's captures and replays per capture (graphed: every solve a
+     replay; eager: none); the two runs' keyframe trajectories bit for
+     bit unless their closures corrected maps of different keyframes
+     (the loop closer corrects the map it finds when its verification
+     ends, so the threads' timing moves the result); on the same maps a
+     difference fails unless a second eager run differs from the first too;
   9. disk path: a 40-frame 752x480 EuRoC-layout fixture (``io/mini_euroc``,
      phase 4's scene, written during phase 2) through ``run_euroc.main``
      with configs/config_euroc.yaml, the prefetching loader (decode on
@@ -134,6 +144,7 @@ does an import of JAX or of the JAX package (``plslam_tpu``).
 """
 
 import argparse
+import copy
 import functools
 import gc
 import importlib.util
@@ -835,18 +846,60 @@ def run_slam(dev, cam, poses, frames, cfg, mcfg, capture: bool) -> dict:
                       int(prob.p_valid.sum()), int(prob.l_valid.sum()))
     r["programs"] = program_stats(slam)
     r["vo_pool"] = sum(p.pool_bytes() for p in slam.vo.programs())
+    # the map the GBA at finish meets (the GBA flushes the deferred local
+    # BA first: flushed here, so the copy holds it)
+    slam.mapper.flush_ba()
+    gba_map = copy.deepcopy(slam.mapper.map)
+    _sync(dev)
     t = time.perf_counter()
     r["traj"] = traj = slam.finish(run_gba=True)
     _sync(dev)
     r["gba_ms"] = 1e3 * (time.perf_counter() - t)
+    r["gba"] = dict(slam.mapper.gba_trips)
     r["wall"] = time.perf_counter() - t0
     r["by_thread"] = _by_thread(wrappers)
+    r["gba_prof"] = profile_gba(dev, slam.mapper, gba_map, capture)
     r["map_prof"] = profile_mapping(dev, slam.mapper, jobs, capture)
     r["good"] = [lg.good for lg in slam.logs]
     est = np.stack([T[:3, 3] for T in traj])
     gt = np.stack([poses[int(round(ts / 0.05))][:3, 3] for ts in slam.kf_timestamps])
     r["ate"] = ate_rmse(est, gt, align=True)
     return r
+
+
+def profile_gba(dev, mapper, mp, capture: bool) -> dict:
+    """The GBA at finish once more, on a fresh ``MapHandler`` of
+    ``mapper``'s configuration over ``mp`` (a copy of the map that GBA
+    met), under ``torch.profiler``: wall and device-busy ms, device
+    kernels, host CUDA calls and graph launches, its trips and the
+    keyframe poses it left."""
+    from plslam_tpu_torch.backend.mapping import MapHandler
+    from plslam_tpu_torch.profile_vo import profile_window
+
+    fresh = MapHandler(mapper.cam, mapper.cfg, mapper.ba_cfg, tracker_cfg=mapper.tracker_cfg,
+                       device=dev, capture=capture)
+    fresh.map = mp
+    w = profile_window(lambda i: fresh.global_bundle_adjustment(), 1)
+    return {**{k: w[k] for k in ("wall_ms", "busy_ms", "kernels", "host_cuda_calls",
+                                 "graph_launches")},
+            "trips": dict(fresh.gba_trips), "traj": fresh.keyframe_trajectory()}
+
+
+def trips_phrase(trips: dict) -> str:
+    """A program's trips run eagerly (its warm-ups) and by replay, and its
+    graph's pool."""
+    return (f"{trips['eager']} trips eager / {trips['replayed']} by replay, pool "
+            f"{trips['pool_bytes'] / 2**20:.3f} MiB")
+
+
+def check_trips(name: str, trips: dict, total: int, graphed: bool) -> None:
+    """A program of ``total`` trips: graphed, all but the warm-ups replay
+    one captured trip; eager, none does."""
+    from plslam_tpu_torch import graphs
+
+    want = (graphs.WARMUP, total - graphs.WARMUP) if graphed else (total, 0)
+    if (trips["eager"], trips["replayed"]) != want:
+        raise AssertionError(f"{name}: trips eager / replayed {trips}, want {want}")
 
 
 def record_keyframes(mapper) -> list:
@@ -919,8 +972,7 @@ def check_slam(name: str, g: dict, e: dict, floor: float, jax_ate: float, smi: s
     """Report the graphed run ``g`` beside the eager run ``e`` and hold
     both to the SLAM checks; the graphed run also to its kernel launches
     and to a capture of each program kind in ``kinds``."""
-    same = len(g["traj"]) == len(e["traj"]) and all(
-        np.array_equal(a, b) for a, b in zip(g["traj"], e["traj"]))
+    same = _same_poses(g["traj"], e["traj"])
     for form, r in (("graphed", g), ("eager", e)):
         say(f"{name} {form}: {r['fps']:.3f} full-SLAM frames/s over {SLAM_FRAMES} frames "
             f"({r['wall']:.3f} s for all {len(r['good'])} frames and the GBA); "
@@ -939,7 +991,17 @@ def check_slam(name: str, g: dict, e: dict, floor: float, jax_ate: float, smi: s
             f"graph launches, {p['kernels']:.1f} device kernels, wall {p['wall_ms']:.3f} ms, "
             f"device busy {p['busy_ms']:.3f} ms ({100 * p['busy_share']:.2f}%) per keyframe; "
             f"{p['captures']} captures in the window on {smi}")
-    say(f"{name}: graphed and eager keyframe trajectories bit-identical: {same}")
+    for form, r in (("graphed", g), ("eager", e)):
+        p = r["gba_prof"]
+        say(f"{name} {form}: GBA at finish {r['gba_ms']:.3f} ms wall, "
+            f"{trips_phrase(r['gba'])}, {r['gba']['chunks']} chunk(s); under the "
+            f"profiler (a rerun on a copy of the map it met) wall {p['wall_ms']:.3f} ms, device "
+            f"busy {p['busy_ms']:.3f} ms, {p['kernels']:.0f} device kernels, "
+            f"{p['host_cuda_calls']:.0f} host CUDA calls, {p['graph_launches']:.0f} graph "
+            f"launches; the rerun's poses bit-identical: "
+            f"{_same_poses(p['traj'], r['traj'])} on {smi}")
+    say(f"{name}: graphed and eager keyframe trajectories bit-identical: {same} (after the "
+        f"GBA: keyframe ATE graphed {g['ate']:.9f}, eager {e['ate']:.9f} m)")
     say(f"{name} launches by thread (graphed run): {g['by_thread']}")
     for form, r in (("graphed", g), ("eager", e)):
         slam = r["slam"]
@@ -960,6 +1022,13 @@ def check_slam(name: str, g: dict, e: dict, floor: float, jax_ate: float, smi: s
             raise AssertionError(f"{name} {form}: GBA poses are not finite")
         if not r["ate"] <= floor:
             raise AssertionError(f"{name} {form}: keyframe ATE {r['ate']} above floor {floor}")
+        total = slam.mapper.ba_cfg.iters1 + slam.mapper.ba_cfg.iters2
+        check_trips(f"{name} {form} GBA", r["gba"], total, form == "graphed")
+        check_trips(f"{name} {form} GBA rerun", r["gba_prof"]["trips"], total, form == "graphed")
+        if not _same_poses(r["gba_prof"]["traj"], r["traj"]):
+            raise AssertionError(f"{name} {form}: the GBA on a copy of its map left other poses")
+    if not same:
+        raise AssertionError(f"{name}: graphed and eager keyframe trajectories differ")
     for kind in kinds:
         if g["programs"][kind]["captures"] < 1:
             raise AssertionError(f"{name}: no {kind} program was captured: {g['programs']}")
@@ -971,6 +1040,10 @@ def check_slam(name: str, g: dict, e: dict, floor: float, jax_ate: float, smi: s
     for k in KERNEL_WRAPPERS:
         if sum(g["by_thread"][k].values()) <= 0:
             raise AssertionError(f"{name}: kernel {k} never launched")
+
+
+def _same_poses(a, b) -> bool:
+    return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
 
 
 def slam_frames(dev, scene):
@@ -1018,16 +1091,21 @@ def slam_profile(dev, cam, frames, cfg, mcfg, smi) -> None:
     say(f"slam profile: top device kernels per frame: {top}")
 
 
+def slam_configs():
+    """Phase 5's ``PLSLAMConfig`` and ``MapConfig`` (bench_slam.py's)."""
+    from plslam_tpu_torch.backend.mapping import MapConfig
+    from plslam_tpu_torch.config import PLSLAMConfig
+
+    return (PLSLAMConfig(orb_nfeatures=1200, lsd_nfeatures=256, min_entropy_ratio=0.99),
+            MapConfig(local_ba_kf=8, ba_points=2048, ba_lines=256, ba_pobs=8192, ba_lobs=2048))
+
+
 def phase_slam(dev, scene, smi):
     """PLSLAM through the kernels at bench_slam.py's configuration, the
     tracker and the mapper graphed, beside the same run eagerly, and a
     profile of the graphed run."""
-    from plslam_tpu_torch.backend.mapping import MapConfig
-    from plslam_tpu_torch.config import PLSLAMConfig
-
     cam, poses, frames = slam_frames(dev, scene)
-    cfg = PLSLAMConfig(orb_nfeatures=1200, lsd_nfeatures=256, min_entropy_ratio=0.99)
-    mcfg = MapConfig(local_ba_kf=8, ba_points=2048, ba_lines=256, ba_pobs=8192, ba_lobs=2048)
+    cfg, mcfg = slam_configs()
     g = run_slam(dev, cam, poses, frames, cfg, mcfg, capture=True)
     e = run_slam(dev, cam, poses, frames, cfg, mcfg, capture=False)
     check_slam("slam", g, e, SLAM_ATE_FLOOR, JAX_CPU_SLAM_ATE, smi, ("local_ba", "assoc"))
@@ -1259,6 +1337,9 @@ def run_ring(dev, cam, feats, T_est, T_true, capture: bool) -> dict:
         log.removeHandler(handler)
         log.setLevel(old_level)
     r["by_thread"] = {k: fn.launches_by_thread() for k, fn in wrappers.items()}
+    r["gba"] = dict(slam.mapper.gba_trips)
+    r["verify_ms"] = list(slam.loop_closer.verify_ms)
+    r["solves"] = dict(slam.loop_closer.solve_counts)
     gba_msgs = [m for m in handler.messages if m.startswith("GBA:")]
     r["gba_msgs"] = gba_msgs
     r["n_chunks"] = int(gba_msgs[-1].split(" in ")[1].split()[0]) if gba_msgs else 0
@@ -1278,12 +1359,19 @@ def check_ring(form: str, r: dict, T_est, T_true, smi: str) -> None:
     for rep in reports:
         say(f"loop {form}: closure kf {rep['kf']} -> candidate {rep['candidate']} on the map "
             f"of {rep['map_keyframes']} keyframes: verification {rep['verify_ms']:.3f} ms, PGO "
-            f"{rep['pgo_ms']:.3f} ms, fusion "
+            f"{rep['pgo_ms']:.3f} ms ({trips_phrase(rep['pgo_trips'])}), fusion "
             f"{rep['fuse_ms']:.3f} ms, fused {rep['fused']}, "
             f"correction {rep['correction']:.6f} m on {smi}")
+    v, sc = r["verify_ms"], r["solves"]
+    per = sc["replays"] / sc["captures"] if sc["captures"] else 0.0
+    say(f"loop {form}: {len(v)} candidates verified, ms per candidate median "
+        f"{float(np.median(v)) if v else float('nan'):.3f} (first {v[0] if v else float('nan'):.3f}, "
+        f"min {min(v, default=float('nan')):.3f}, max {max(v, default=float('nan')):.3f}); the "
+        f"pose solve {sc['solves']} times: {sc['captures']} captures / {sc['replays']} replays "
+        f"({per:.1f} per capture) on {smi}")
     say(f"loop {form}: ATE odometry {drift_odo:.6f} m, after the closure {r['ate_closed']:.6f} "
         f"m, after the GBA {r['ate_gba']:.6f} m; GBA (finish) {r['gba_ms']:.3f} ms in "
-        f"{r['n_chunks']} chunks on {smi}")
+        f"{r['n_chunks']} chunks, {trips_phrase(r['gba'])} on {smi}")
     say_programs(f"loop {form}", r["programs"], smi)
     say(f"loop {form} launches by thread: {r['by_thread']}")
     if slam._map_errors:
@@ -1316,6 +1404,15 @@ def check_ring(form: str, r: dict, T_est, T_true, smi: str) -> None:
                              f"{np.isfinite(np.stack(r['traj'])).all()}, ATE {r['ate_gba']}")
     if r["by_thread"]["hamming_distance_matrix_cuda"].get(LOOP_THREAD, 0) <= 0:
         raise AssertionError(f"loop {form}: the loop-closure thread never launched Hamming")
+    graphed = form == "graphed"
+    bcfg = slam.mapper.ba_cfg
+    check_trips(f"loop {form} GBA", r["gba"], bcfg.iters1 + bcfg.iters2, graphed)
+    for x in reports:
+        check_trips(f"loop {form} PGO", x["pgo_trips"], slam.loop_closer.cfg.pgo_iters, graphed)
+    sc = r["solves"]
+    want = sc["solves"] if graphed else 0
+    if sc["solves"] < 1 or sc["replays"] != want or (sc["captures"] >= 1) != graphed:
+        raise AssertionError(f"loop {form}: the verification's pose solve {sc}")
 
 
 def _closures(r: dict) -> list:

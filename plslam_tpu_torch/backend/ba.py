@@ -28,6 +28,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from .. import graphs
 from ..core import lie, linalg
 from ..core.camera import StereoCamera
 from ..core.plucker import (jac_plucker_wrt_orth, orth_plus, orth_to_plucker,
@@ -540,7 +541,8 @@ def _chunk(prob: BAProblem, c: int, T, points, lines_orth) -> BAProblem:
 
 
 def bundle_adjust_chunked(prob: BAProblem, cam: StereoCamera, cfg: BAConfig = BAConfig(),
-                          gather=None) -> BAResult:
+                          gather=None, *, capture: bool = False,
+                          report: dict | None = None) -> BAResult:
     """Global BA over every landmark, tiled in fixed-shape chunks
     (globalBundleAdjustment :3022-3126).  ``prob`` carries a leading chunk
     axis C on every landmark and observation leaf (``_CHUNK_LEAVES``) and
@@ -550,15 +552,27 @@ def bundle_adjust_chunked(prob: BAProblem, cam: StereoCamera, cfg: BAConfig = BA
     landmarks are back-substituted.  Fixed trips, no early exit (as in the
     JAX package).
 
+    The trips of both rounds run as one ``graphs.Trips`` program: a trip
+    reads the LM carry (poses, landmarks, lambda, cost, the active masks)
+    from static buffers and writes it back, so with ``capture`` on a CUDA
+    device its warm-ups are the first trips and the others replay one
+    graph, which the call drops at its end; ``capture=False`` runs the
+    same trips eagerly.  The round-start cost and the chi^2 gate between
+    the rounds run eagerly.  ``report``, when given, receives the trips'
+    ``graphs.Trips.stats``.
+
     ``gather`` (the JAX ``axis_name``): when each rank holds a contiguous
     run of the chunks (``parallel/dist_gba.py``), the function that
     concatenates a tensor's leading axis over the ranks in chunk order.
     The chunks' costs and, after pass 1, their Hcc, S_off and rhs are then
     gathered and summed in chunk order on every rank: the sums, and so the
     result, of this solve in one process on all the chunks, bit for bit.
-    The chi^2 gate stays per chunk."""
+    The chi^2 gate stays per chunk.  That form runs eagerly."""
     _check_precision()
+    if gather is not None and capture:
+        raise ValueError("the gathered GBA runs collectives: it is not captured")
     C = prob.points.shape[0]
+    K = prob.T_c_w.shape[0]
     free = prob.pose_valid & ~prob.pose_fixed
     dev = prob.points.device
 
@@ -578,50 +592,57 @@ def bundle_adjust_chunked(prob: BAProblem, cam: StereoCamera, cfg: BAConfig = BA
 
     plans = [assembly_plans(_chunk(prob, c, prob.T_c_w, prob.points[c], prob.lines_orth[c]))
              for c in range(C)]
+    # the LM carry: static buffers every trip reads and writes back
+    T, pts, ls = prob.T_c_w.clone(), prob.points.clone(), prob.lines_orth.clone()
+    p_act, l_act = prob.p_valid.clone(), prob.l_valid.clone()
+    lam = torch.empty((), dtype=prob.points.dtype, device=dev)
+    cost = torch.empty((), dtype=prob.points.dtype, device=dev)
 
-    def rounds(T, pts, ls, p_act, l_act, iters):
-        lam = torch.full((), cfg.lambda_init, dtype=prob.points.dtype, device=dev)
-        cost = cost_all(T, pts, ls, p_act, l_act)
-        K = T.shape[0]
-        for _ in range(iters):
-            systems, parts = [], []
-            for c in range(C):
-                pr = _chunk(prob, c, T, pts[c], ls[c])
-                a = assemble(pr, cam, cfg, p_act[c], l_act[c], plans=plans[c])
-                Hpp_inv, Hll_inv, S_c, rhs_c = schur_partials(a, pr, lam, cfg, mode="global")
-                systems.append(torch.cat([a.Hcc.reshape(-1), S_c.reshape(-1),
-                                          rhs_c.reshape(-1)]))
-                parts.append((a, Hpp_inv, Hll_inv))
-            Hcc, S_off, rhs = chunk_sum(systems).split([K * 36, K * K * 36, K * 6])
-            dpose = solve_reduced(Hcc.view(K, 6, 6), S_off.view(K, K, 6, 6), rhs.view(K, 6),
-                                  lam, free)
-            T_new = _pose_step(dpose, T)
-            cand_pts, cand_ls, costs = [], [], []
-            for c, (a, Hpp_inv, Hll_inv) in enumerate(parts):
-                dpoint, dline = back_substitute(a, Hpp_inv, Hll_inv, dpose, cfg)
-                cand_pts.append(pts[c] - dpoint)
-                cand_ls.append(orth_plus(ls[c], -dline))
-                costs.append(total_cost(_chunk(prob, c, T_new, cand_pts[c], cand_ls[c]),
-                                        cam, cfg, p_act[c], l_act[c]))
-            new_cost = chunk_sum(costs)
-            ok = (new_cost < cost) & torch.isfinite(new_cost)
-            T = _lm_select(ok, T_new, T)
-            pts = _lm_select(ok, torch.stack(cand_pts), pts)
-            ls = _lm_select(ok, torch.stack(cand_ls), ls)
-            lam = torch.clamp(torch.where(ok, lam / cfg.lambda_factor,
-                                          lam * cfg.lambda_factor), 1e-9, 1e6)
-            cost = torch.where(ok, new_cost, cost)
-        return T, pts, ls, cost
+    def trip():
+        systems, parts = [], []
+        for c in range(C):
+            pr = _chunk(prob, c, T, pts[c], ls[c])
+            a = assemble(pr, cam, cfg, p_act[c], l_act[c], plans=plans[c])
+            Hpp_inv, Hll_inv, S_c, rhs_c = schur_partials(a, pr, lam, cfg, mode="global")
+            systems.append(torch.cat([a.Hcc.reshape(-1), S_c.reshape(-1), rhs_c.reshape(-1)]))
+            parts.append((a, Hpp_inv, Hll_inv))
+        Hcc, S_off, rhs = chunk_sum(systems).split([K * 36, K * K * 36, K * 6])
+        dpose = solve_reduced(Hcc.view(K, 6, 6), S_off.view(K, K, 6, 6), rhs.view(K, 6),
+                              lam, free)
+        T_new = _pose_step(dpose, T)
+        cand_pts, cand_ls, costs = [], [], []
+        for c, (a, Hpp_inv, Hll_inv) in enumerate(parts):
+            dpoint, dline = back_substitute(a, Hpp_inv, Hll_inv, dpose, cfg)
+            cand_pts.append(pts[c] - dpoint)
+            cand_ls.append(orth_plus(ls[c], -dline))
+            costs.append(total_cost(_chunk(prob, c, T_new, cand_pts[c], cand_ls[c]),
+                                    cam, cfg, p_act[c], l_act[c]))
+        new_cost = chunk_sum(costs)
+        ok = (new_cost < cost) & torch.isfinite(new_cost)
+        T_next = _lm_select(ok, T_new, T)
+        pts_next = _lm_select(ok, torch.stack(cand_pts), pts)
+        ls_next = _lm_select(ok, torch.stack(cand_ls), ls)
+        lam_next = torch.clamp(torch.where(ok, lam / cfg.lambda_factor,
+                                           lam * cfg.lambda_factor), 1e-9, 1e6)
+        cost_next = torch.where(ok, new_cost, cost)
+        for buf, x in ((T, T_next), (pts, pts_next), (ls, ls_next), (lam, lam_next),
+                       (cost, cost_next)):
+            buf.copy_(x)
 
-    def gate(T, pts, ls, p_act, l_act):
-        out = [_gate(_chunk(prob, c, T, pts[c], ls[c]), cam, cfg, p_act[c], l_act[c])
-               for c in range(C)]
-        return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])
+    def start_round():
+        lam.fill_(cfg.lambda_init)
+        cost.copy_(cost_all(T, pts, ls, p_act, l_act))
 
-    T, pts, ls = prob.T_c_w, prob.points, prob.lines_orth
-    p_act, l_act = prob.p_valid, prob.l_valid
-    T, pts, ls, _ = rounds(T, pts, ls, p_act, l_act, cfg.iters1)
-    p_act, l_act = gate(T, pts, ls, p_act, l_act)
-    T, pts, ls, cost = rounds(T, pts, ls, p_act, l_act, cfg.iters2)
+    with graphs.Trips(trip, dev, cfg.iters1 + cfg.iters2, capture=capture) as trips:
+        start_round()
+        trips.run(cfg.iters1)
+        gated = [_gate(_chunk(prob, c, T, pts[c], ls[c]), cam, cfg, p_act[c], l_act[c])
+                 for c in range(C)]
+        p_act.copy_(torch.stack([g[0] for g in gated]))
+        l_act.copy_(torch.stack([g[1] for g in gated]))
+        start_round()
+        trips.run(cfg.iters2)
+        if report is not None:
+            report.update(trips.stats())
     out = prob._replace(T_c_w=T, points=pts, lines_orth=ls)
     return BAResult(problem=out, p_active=p_act, l_active=l_act, cost=cost)

@@ -118,9 +118,13 @@ class LoopCloser:
         self.conf: np.ndarray = np.zeros((0, 0), np.float32)
         self.closed_at: int = -10 ** 9
         # the BoW transform's programs, one per (vocabulary, N), built on
-        # the current vocabularies (dropped when they change); captured as
+        # the current vocabularies, and the verification's pose solve, one
+        # per bucket (all dropped when the vocabularies change); captured as
         # the mapper's programs are
         self.programs = graphs.ProgramCache(GRAPH_BUCKETS)
+        self.verify_ms: list[float] = []   # wall ms of each candidate's verification
+        # the pose solve's programs: captures, and calls that replayed one
+        self.solve_counts = {"solves": 0, "captures": 0, "replays": 0}
 
     # -- BoW bookkeeping ---------------------------------------------------
 
@@ -258,9 +262,10 @@ class LoopCloser:
             return None
         t0 = time.perf_counter()
         ok, T_rel, pt_pairs, ls_pairs = self._verify_candidate(kf_id, cand)
+        verify_ms = 1e3 * (time.perf_counter() - t0)
+        self.verify_ms.append(verify_ms)
         if not ok:
             return None
-        verify_ms = 1e3 * (time.perf_counter() - t0)
         with self.mapper._map_lock:
             report = self._close(kf_id, cand, T_rel, pt_pairs, ls_pairs)
         self.closed_at = kf_id
@@ -335,11 +340,8 @@ class LoopCloser:
         P[i1] = old.pt_P[i1]
         obs[i1] = kf.pt_uv[pt_pairs[:, 1]]
         valid[i1] = True
-        pts = TrackedPoints(P=up(P), obs=up(obs),
-                            sigma2=torch.ones(n, device=self.device),
-                            valid=up(valid), inlier=up(valid))
-        ls, ls_pairs = (self._lines_for_verification(old, kf, idx[n:]) if with_lines
-                        else (None, None))
+        arrays, ls_pairs = (self._lines_for_verification(old, kf, idx[n:]) if with_lines
+                            else (None, None))
         if self.mapper.cfg.use_lines:
             # with both modalities on, both ratios must pass (:4388-4392)
             n_ls = len(ls_pairs) if ls_pairs is not None else 0
@@ -348,12 +350,10 @@ class LoopCloser:
             if (max(100.0 * n_ls / n0, 100.0 * n_ls / n1) <= self.cfg.lc_inlier_ratio
                     or n_ls < self.cfg.min_ls_matches):
                 return fail
-        cfgT = TrackerConfig(use_lines=ls is not None, plucker_lines=False)
-        if ls is None:
-            ls, ls_pairs = _empty_lines(8, self.device), np.zeros((0, 2), np.int64)
-        est, _, _ = optimize_pose(pts, ls, self.cam, cfgT)
-        buf = torch.cat([est.DT.reshape(-1), est.cov.reshape(-1), est.err[None],
-                         est.good.to(est.DT.dtype)[None]]).cpu().numpy().astype(np.float64)
+        if arrays is None:
+            arrays, ls_pairs = {}, np.zeros((0, 2), np.int64)
+        buf = self._solve_pose(dict(P=P, obs=obs, valid=valid, **arrays)).cpu().numpy() \
+            .astype(np.float64)
         if not buf[-1] > 0.5:
             return fail
         DT, cov, err = buf[:16].reshape(4, 4), buf[16:52], float(buf[52])
@@ -365,12 +365,51 @@ class LoopCloser:
             return fail
         return True, DT, pt_pairs, ls_pairs
 
+    def _solve_pose(self, arrays: dict) -> torch.Tensor:
+        """The verification's ``optimize_pose`` as one program per bucket
+        (the shapes, and lines or none) over the staged ``TrackedPoints``
+        fields P, obs, valid and, with lines, the ``TrackedLines`` fields of
+        ``_lines_for_verification``: a copy of the 54 floats DT, cov, err
+        and good."""
+        cfgT = TrackerConfig(use_lines="lvalid" in arrays, plucker_lines=False)
+        cam, dev = self.cam, self.device
+
+        def fn(x):
+            n = x["P"].shape[0]
+            pts = TrackedPoints(P=x["P"], obs=x["obs"],
+                                sigma2=torch.ones(n, device=x["P"].device),
+                                valid=x["valid"], inlier=x["valid"])
+            if cfgT.use_lines:
+                ls = TrackedLines(sP=x["sP"], eP=x["eP"], sp=x["sp"], ep=x["ep"],
+                                  NDc=x["NDc"], sobs=x["sobs"], eobs=x["eobs"],
+                                  le_obs=x["le"], sigma2=x["ls_sigma2"], valid=x["lvalid"],
+                                  inlier=x["lvalid"])
+            else:
+                ls = _empty_lines(8, x["P"].device)
+            est, _, _ = optimize_pose(pts, ls, cam, cfgT)
+            return torch.cat([est.DT.reshape(-1), est.cov.reshape(-1), est.err[None],
+                              est.good.to(est.DT.dtype)[None]])
+
+        built = []
+
+        def build():
+            built.append(graphs.StagedProgram(fn, arrays, dev, capture=self.mapper.capture))
+            return built[0]
+
+        prog = self.programs.get(("verify", cfgT, graphs.StagedProgram.key(arrays)), build)
+        out = prog(arrays)
+        c = self.solve_counts
+        c["solves"] += 1
+        c["captures"] += bool(built) and prog.program.captured
+        c["replays"] += prog.program.captured
+        return out
+
     def _lines_for_verification(self, old: KeyframeRecord, kf: KeyframeRecord,
                                 idx: np.ndarray):
         """Line modality of isLoopClosure: the mutual-NNR matches ``idx``
         (old line -> new line or -1) as endpoint correspondences for the GN.
-        Returns (TrackedLines, (M, 2) pairs), or (None, None) under 3
-        matches."""
+        Returns (the staged ``TrackedLines`` fields of ``_solve_pose``, (M,
+        2) pairs), or (None, None) under 3 matches."""
         if (idx >= 0).sum() < 3:
             return None, None
         nl = len(old.ls_valid)
@@ -388,12 +427,11 @@ class LoopCloser:
         lval = np.zeros(nl, bool)
         sobs[i1], eobs[i1], le[i1] = kf.ls_sp[i2], kf.ls_ep[i2], lo / nrm[:, None]
         lval[i1] = True
-        up = functools.partial(_upload, device=self.device)
-        tl = TrackedLines(sP=up(old.ls_sP), eP=up(old.ls_eP), sp=up(old.ls_sp),
-                          ep=up(old.ls_ep), NDc=up(old.ls_NDc), sobs=up(sobs),
-                          eobs=up(eobs), le_obs=up(le), sigma2=up(old.ls_sigma2),
-                          valid=up(lval), inlier=up(lval))
-        return tl, np.stack([i1, i2], axis=1)
+        f32 = functools.partial(np.asarray, dtype=np.float32)
+        arrays = dict(sP=f32(old.ls_sP), eP=f32(old.ls_eP), sp=f32(old.ls_sp), ep=f32(old.ls_ep),
+                      NDc=f32(old.ls_NDc), sobs=sobs, eobs=eobs, le=le,
+                      ls_sigma2=f32(old.ls_sigma2), lvalid=lval)
+        return arrays, np.stack([i1, i2], axis=1)
 
     # -- pose-graph correction + fusion (:5301-5531, :5533-5807) -----------
 
@@ -418,7 +456,9 @@ class LoopCloser:
             e_T=torch.from_numpy(np.stack(e_T)).to(dev),
             e_info=torch.tensor(e_w, dtype=f64, device=dev),
             e_valid=torch.ones(len(e_i), dtype=torch.bool, device=dev))
-        Tn = pgo_mod.optimize(g, self.cfg.pgo_iters).T_w_k
+        trips = {}
+        Tn = pgo_mod.optimize(g, self.cfg.pgo_iters, capture=self.mapper.capture,
+                              report=trips).T_w_k
         # rigid landmark correction by owner = first observing keyframe
         # (:5219-5287); one copy back with the poses
         pts = pgo_mod.correct_landmarks(To, Tn, _upload(mp.pt_first_kf, dev),
@@ -441,7 +481,8 @@ class LoopCloser:
         t2 = time.perf_counter()
         drift = float(np.linalg.norm(T_new[kf_id][:3, 3] - T_old[kf_id][:3, 3]))
         return {"kf": kf_id, "candidate": cand_id, "map_keyframes": K, "fused": fused,
-                "correction": drift, "pgo_ms": 1e3 * (t1 - t0), "fuse_ms": 1e3 * (t2 - t1)}
+                "correction": drift, "pgo_ms": 1e3 * (t1 - t0), "fuse_ms": 1e3 * (t2 - t1),
+                "pgo_trips": trips}
 
     def _fuse_landmarks(self, kf_id: int, cand_id: int,
                         pt_pairs: np.ndarray, ls_pairs: np.ndarray) -> dict:

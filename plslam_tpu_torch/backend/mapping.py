@@ -782,6 +782,7 @@ class MapHandler:
         # kind); capture=False runs the same code eagerly
         self.capture = capture
         self.programs = {kind: graphs.ProgramCache(GRAPH_BUCKETS) for kind in PROGRAM_KINDS}
+        self.gba_trips: dict = {}     # the last GBA's trips (``global_bundle_adjustment``)
 
     # -- device association (the JAX package's fused programs) -------------
 
@@ -1720,7 +1721,10 @@ class MapHandler:
     def global_bundle_adjustment(self):
         """GBA over every active keyframe and every landmark, tiled in
         fixed-shape landmark chunks so nothing is truncated
-        (globalBundleAdjustment :3022-3126)."""
+        (globalBundleAdjustment :3022-3126).  Its LM trips replay one
+        captured trip (``ba.bundle_adjust_chunked``) unless ``capture`` is
+        off; ``gba_trips`` then holds the trips run eagerly and by replay,
+        the graph's pool bytes and the chunks."""
         cfg = self.cfg
         mp = self.map
         if len(mp.keyframes) < 2:
@@ -1748,8 +1752,11 @@ class MapHandler:
             k: v if k in ("T_c_w", "pose_fixed", "pose_valid")
             else np.stack([getattr(p, k) for p in probs])
             for k, v in probs[0]._asdict().items() if v is not None})
+        trips = {}
         res = ba_mod.bundle_adjust_chunked(ba_problem_from_numpy(stacked, self.device),
-                                           self.cam, self.ba_cfg)
+                                           self.cam, self.ba_cfg, capture=self.capture,
+                                           report=trips)
+        self.gba_trips = {**trips, "chunks": n_chunks}
         f32 = torch.float32
         out = torch.cat([res.problem.T_c_w.reshape(-1), res.problem.points.reshape(-1),
                          res.problem.lines_orth.reshape(-1),

@@ -13,8 +13,9 @@ X = Z^-1 T_i^-1 T_j and e = log X,
 Jr^-1 the inverse right Jacobian of SE(3) (Barfoot, "State Estimation for
 Robotics", 7.1.5).  The poses come from host float64 and the PGO runs in
 float64; the fixed-trip loop takes a zero step when the solve is not
-finite, with no host sync.  The edges' blocks are summed in a fixed order
-(``core/segment.py``), so a PGO repeats bit for bit.
+finite, with no host sync; its iterations can be one captured graph
+replayed (``graphs.Trips``).  The edges' blocks are summed in a fixed
+order (``core/segment.py``), so a PGO repeats bit for bit.
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from typing import NamedTuple
 
 import torch
 
+from .. import graphs
 from ..core import lie, linalg
 from ..core.plucker import transform_plucker
 from ..core.segment import SegmentPlan, segment_plan, segment_sum
@@ -120,21 +122,30 @@ def build_system(g: PoseGraph, plans: SystemPlans | None = None):
     return H, b, cost
 
 
-def optimize(g: PoseGraph, iters: int = 10, damping: float = 1e-6, allsum=None) -> PoseGraph:
+def optimize(g: PoseGraph, iters: int = 10, damping: float = 1e-6, allsum=None, *,
+             capture: bool = False, report: dict | None = None) -> PoseGraph:
     """Fixed-trip Gauss-Newton.  Fixed and invalid poses get identity rows
     and a zero right-hand side; a non-finite step becomes a zero step.
+    The iterations run as one ``graphs.Trips`` program over a static pose
+    buffer: with ``capture`` on a CUDA device the warm-ups are the first
+    iterations and the others replay one graph, which the call drops at
+    its end; ``capture=False`` runs the same iterations eagerly.
+    ``report``, when given, receives the trips' ``graphs.Trips.stats``.
     ``allsum``: when each rank holds a block of the edges
     (``parallel/dist_match.make_dist_pgo``), the function that sums a
     tuple of tensors over the ranks; H and b are summed, and every rank
-    solves."""
+    solves.  That form runs eagerly."""
+    if allsum is not None and capture:
+        raise ValueError("the edge-sharded PGO runs collectives: it is not captured")
     K = g.T_w_k.shape[0]
     dtype, dev = g.T_w_k.dtype, g.T_w_k.device
     free = (g.valid & ~g.fixed).to(dtype)
     I6 = torch.eye(6, dtype=dtype, device=dev)
     gauge = I6 * (1.0 - free)[:, None, None] + damping * I6
-    T = g.T_w_k
+    T = g.T_w_k.clone()   # the static pose buffer every iteration reads and writes back
     plans = system_plans(g)
-    for _ in range(iters):
+
+    def trip():
         H, b, _ = build_system(g._replace(T_w_k=T), plans)
         if allsum is not None:
             H, b = allsum((H, b))
@@ -143,7 +154,12 @@ def optimize(g: PoseGraph, iters: int = 10, damping: float = 1e-6, allsum=None) 
         Hmat = Hm.permute(0, 2, 1, 3).reshape(6 * K, 6 * K)
         delta = linalg.solve_spd(Hmat, (b * free[:, None]).reshape(-1)).reshape(K, 6)
         delta = torch.where(torch.isfinite(delta).all(), delta, 0.0)
-        T = T @ lie.exp_se3(-delta)
+        T.copy_(T @ lie.exp_se3(-delta))
+
+    with graphs.Trips(trip, dev, iters, capture=capture) as trips:
+        trips.run(iters)
+        if report is not None:
+            report.update(trips.stats())
     return g._replace(T_w_k=T)
 
 

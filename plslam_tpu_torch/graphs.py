@@ -20,9 +20,11 @@ make that one copy).
 - One capture at a time in the process (a lock around warm-up and
   capture): the side streams come from PyTorch's round-robin pool, and two
   concurrent captures must not meet on one stream.  Replays take no lock.
-  Python's cyclic garbage collector runs before a capture and is off
-  during it: a graph destroyed on the capturing thread (a dropped tracker's
-  reference cycle collected mid-capture) invalidates the capture.
+  Python's cyclic garbage collector is off during a capture: a graph
+  destroyed on the capturing thread (a dropped tracker's reference cycle
+  collected mid-capture) invalidates the capture.  No collection runs
+  before it: with the collector off none can start mid-capture, and a
+  full pass over a SLAM process's objects takes a few hundred ms.
 - A capture or replay error raises.  Nothing falls back to eager.
 - Kernel launch counts stay true: the wrappers' launches during the
   capture are recorded (``cuda_lib.recording``), and each replay adds them
@@ -30,6 +32,12 @@ make that one copy).
 - On a CPU device, or with ``capture=False`` (the counterpart of
   ``jax.disable_jit``), a call runs the function itself, so the CPU tests
   exercise the code the graph captures.
+
+A ``Trips`` object runs the body of a fixed-trip loop (an LM or
+Gauss-Newton iteration: the counterpart of a ``lax.scan`` body) as one
+``Program``, built inside the call that owns the loop and dropped at its
+end: the warm-up calls are trips the loop needs anyway, and every later
+trip is a replay.
 
 A ``StagedProgram`` is a ``Program`` whose inputs are host arrays (the
 counterpart of a jitted function called with numpy arguments): they are
@@ -71,6 +79,7 @@ class Program:
         self.graph = None
         self.outputs = None
         self.replays = 0
+        self.warmups = 0      # calls of ``fn`` the capture made before it
         self._tally: dict = {}
         if self.device.type == "cuda" and capture:
             self._capture()
@@ -97,7 +106,6 @@ class Program:
                 self.fn()
             # a graph destroyed on this thread mid-capture (the cyclic
             # collector freeing an old tracker object) invalidates the capture
-            gc.collect()
             collecting = gc.isenabled()
             gc.disable()
             try:
@@ -117,6 +125,7 @@ class Program:
                     gc.enable()
         current.wait_stream(side)
         self.graph, self.outputs, self._tally = graph, outputs, dict(tally)
+        self.warmups = WARMUP
 
     def __call__(self):
         if self.graph is None:
@@ -146,6 +155,62 @@ class Program:
         capture (a graph destroyed mid-capture can invalidate it)."""
         with _capture_lock:
             self.graph = self.outputs = None
+
+
+class Trips:
+    """``fn``, one trip of a fixed-trip loop over static buffers (it reads
+    the loop's carry from them and writes the next carry back with
+    ``copy_``), as one ``Program``.
+
+    ``run(n)`` runs n trips.  The program is built at the first ``run``
+    of at least WARMUP trips, so its warm-up calls are trips of that run;
+    every later trip replays it.  A loop of ``total`` trips that would
+    leave no trip to replay after the warm-ups is not captured.  Exactly
+    the trips asked for run, and they compute what ``fn`` called in a loop
+    computes.  Used as a context manager: the graph is dropped at the end
+    of the ``with`` block, once its last replay has run."""
+
+    def __init__(self, fn: Callable[[], object], device, total: int, *, capture: bool = True):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.capture = capture
+        self.left = total
+        self.program = None
+        self.eager = self.replayed = 0
+
+    def run(self, n: int) -> None:
+        if self.program is None and n >= WARMUP:
+            self.program = Program(self.fn, self.device,
+                                   capture=self.capture and self.left > WARMUP)
+            n -= self.program.warmups
+            self.left -= self.program.warmups
+            self.eager += self.program.warmups
+        for _ in range(n):
+            if self.program is None:
+                self.fn()
+            else:
+                self.program()
+            replay = self.program is not None and self.program.captured
+            self.replayed += replay
+            self.eager += not replay
+            self.left -= 1
+
+    def stats(self) -> dict:
+        """Trips run by ``fn`` itself (the warm-ups, or every trip when
+        nothing was captured) and by replay, and the graph's pool bytes."""
+        captured = self.program is not None and self.program.captured
+        return {"eager": self.eager, "replayed": self.replayed, "captured": captured,
+                "pool_bytes": self.program.pool_bytes() if captured else 0}
+
+    def __enter__(self) -> "Trips":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        if self.program is not None and self.program.captured:
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            self.program.release()
+        self.program = None
 
 
 def stats() -> dict:

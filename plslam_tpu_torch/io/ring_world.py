@@ -5,7 +5,8 @@ numpy twin of ``tests/_map_fixtures.RingWorld`` and
 ``render_ring_features`` (same draws, same order; ``tests/
 test_torch_chip_smoke.py`` holds them equal): points and wall-tangent or
 vertical segments on a cylindrical corridor wall, each with a random
-256-bit descriptor, projected into a camera on the ring looking outward.
+256-bit descriptor, projected into a camera on the ring looking outward.  Also the pose
+graph of a loop closure around the ring (``ring_pose_graph``).
 """
 
 from __future__ import annotations
@@ -119,3 +120,36 @@ def render_ring_features(world, T_w_c, cam, rng, cap_pt=160, cap_ls=24, desc_noi
     lines["angle"] = np.arctan2(lines["ep"][:, 1] - lines["sp"][:, 1],
                                 lines["ep"][:, 0] - lines["sp"][:, 0]).astype(np.float32)
     return {"points": points, "lines": lines}
+
+
+def ring_pose_graph(seed: int = 0, K: int = 24, band: int = 3) -> dict:
+    """A loop closure's pose graph on the ring world's circle (as
+    ``LoopCloser._close`` builds it with ``build_pgo_edges``): K keyframes
+    around the ring with drifted odometry poses, the odometry edges,
+    covisibility edges between keyframes up to ``band`` apart, and the
+    loop edge K-1 -> 0 measured by the true relative pose; keyframe 0
+    fixed.  numpy fields of ``pgo.PoseGraph`` by name, float64."""
+    import torch
+
+    from ..backend.loop import build_pgo_edges
+    from ..core import lie
+
+    world = RingWorld(n_pts=10, n_ls=2, seed=5)
+    rng = np.random.default_rng(seed)
+    T_true = [world.pose_at(th) for th in np.linspace(0.0, 2 * np.pi, K, endpoint=False)]
+    T_est = [T_true[0]]
+    for i in range(1, K):
+        eps = np.concatenate([rng.normal(0, 0.010, 3), rng.normal(0, 0.0025, 3)])
+        rel = np.linalg.inv(T_true[i - 1]) @ T_true[i]
+        T_est.append(T_est[-1] @ rel @ lie.exp_se3(torch.from_numpy(eps)).numpy())
+    T_est = np.stack(T_est)
+    ii, jj = np.meshgrid(np.arange(K), np.arange(K), indexing="ij")
+    covis = np.where(np.abs(ii - jj) <= band, 100, 0)
+    # the loop edge: T_rel maps the candidate's frame into the keyframe's
+    T_rel = np.linalg.inv(T_true[K - 1]) @ T_true[0]
+    e_i, e_j, e_T, e_w = build_pgo_edges(covis, T_est, 50, K - 1, 0, T_rel)
+    E = len(e_i)
+    return dict(T_w_k=T_est, fixed=np.arange(K) == 0, valid=np.ones(K, bool),
+                e_i=np.asarray(e_i, np.int64), e_j=np.asarray(e_j, np.int64),
+                e_T=np.stack(e_T), e_info=np.asarray(e_w, np.float64),
+                e_valid=np.ones(E, bool))

@@ -1,16 +1,19 @@
-"""Seeded inputs of the mapper's and the loop closer's per-keyframe programs
-(tests/test_torch_graphs_mapping.py and test_torch_graphs_loop.py on the
-CPU, tests/test_torch_gpu_graphs.py on the card): two keyframes of the
-ring world (``plslam_tpu_torch/io/ring_world.py``), local-map candidates
-staged as the mapper stages them, landmark links, the refinement's
-correspondences and a corpus of descriptors, all numpy from a seed.  It
-imports no jax, so the card's tests can use it."""
+"""Seeded inputs of the mapper's and the loop closer's programs
+(tests/test_torch_graphs_mapping.py, test_torch_graphs_loop.py and
+test_torch_graphs_gba.py on the CPU, tests/test_torch_gpu_graphs.py on the
+card): two keyframes of the ring world
+(``plslam_tpu_torch/io/ring_world.py``), local-map candidates staged as the
+mapper stages them, landmark links, the refinement's correspondences, a
+corpus of descriptors, a stacked chunked-GBA problem and a loop closure's
+pose graph, all numpy from a seed.  It imports no jax, so the card's tests
+can use it."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from plslam_tpu_torch.io.ring_world import RingWorld, render_ring_features
+from plslam_tpu_torch.io.ring_world import (  # noqa: F401  (ring_pose_graph: re-exported)
+    RingWorld, render_ring_features, ring_pose_graph)
 
 CAM_K = (458.0, 457.0, 376.0, 240.0, 0.11)
 WIDTH, HEIGHT = 752, 480
@@ -149,3 +152,83 @@ def descriptors(seed: int, n: int, n_valid: int):
     valid = np.zeros(n, bool)
     valid[rng.choice(n, n_valid, replace=False)] = True
     return desc, valid
+
+
+# intrinsics whose line-projection products are exact in float32
+# (tests/test_torch_ba.py), so the port's f32-rounded camera equals JAX's f64 one
+GBA_INTR = (435.25, 435.25, 367.5, 252.25, 0.110074)
+
+
+def chunked_problem(seed: int = 0, C: int = 2, K: int = 8, P: int = 24, L: int = 6,
+                    endpoint: bool = False, noise: float = 0.3, pert: float = 0.03,
+                    dtype=np.float64) -> dict:
+    """A stacked chunked-GBA problem (``ba.bundle_adjust_chunked``'s input)
+    as numpy fields by name: C landmark-disjoint chunks of P points and L
+    lines, each seen by every one of K cameras (observations with
+    ``noise`` px), pose 0 fixed, a start perturbed by ``pert``.  Plücker
+    lines in their own table, or (``endpoint``) two endpoint slots per
+    line after the chunk's points, observed as point rows against the
+    normalized image line.  Index fields int64."""
+    import torch
+
+    from plslam_tpu_torch.core import lie
+    from plslam_tpu_torch.core.plucker import plucker_from_two_points, plucker_to_orth
+
+    rng = np.random.default_rng(seed)
+    fx, fy, cx, cy, _ = GBA_INTR
+    xi = np.concatenate([rng.uniform(-0.5, 0.5, (K, 2)), rng.uniform(-0.1, 0.1, (K, 1)),
+                         rng.uniform(-0.05, 0.05, (K, 3))], axis=1)
+    T_c_w = lie.inv_se3(lie.exp_se3(torch.from_numpy(xi))).numpy()
+    dxi = rng.normal(size=(K, 6)) * pert
+    dxi[0] = 0.0
+    T0 = lie.exp_se3(torch.from_numpy(dxi)).numpy() @ T_c_w
+
+    def proj(X):   # (K, n, 3) world points -> (K * n, 2) pixels in each camera
+        Pc = np.einsum("kij,nj->kni", T_c_w[:, :3, :3], X) + T_c_w[:, None, :3, 3]
+        uv = np.stack([fx * Pc[..., 0] / Pc[..., 2] + cx, fy * Pc[..., 1] / Pc[..., 2] + cy],
+                      -1)
+        return uv.reshape(-1, 2) + rng.normal(size=(K * len(X), 2)) * noise
+
+    cam_of = lambda n: np.repeat(np.arange(K), n)   # noqa: E731
+    chunks = []
+    for _ in range(C):
+        Pw = np.stack([rng.uniform(-3, 3, P), rng.uniform(-2, 2, P), rng.uniform(4, 10, P)], -1)
+        A = np.stack([rng.uniform(-3, 3, L), rng.uniform(-2, 2, L), rng.uniform(4, 10, L)], -1)
+        B = A + np.stack([rng.uniform(-1.5, 1.5, L), rng.uniform(-1.5, 1.5, L),
+                          rng.uniform(-0.5, 0.5, L)], -1)
+        uv, s_uv, e_uv = proj(Pw), proj(A), proj(B)
+        ch = dict(p_cam=cam_of(P), p_lm=np.tile(np.arange(P), K), p_uv=uv)
+        if endpoint:
+            one = np.ones((K * L, 1))
+            lo = np.cross(np.concatenate([s_uv, one], 1), np.concatenate([e_uv, one], 1))
+            lo /= np.hypot(lo[:, 0], lo[:, 1])[:, None]
+            slots = np.stack([A, B], 1).reshape(2 * L, 3)
+            n_obs = K * (P + 2 * L)
+            ch = dict(
+                points=np.concatenate([Pw, slots]) + rng.normal(size=(P + 2 * L, 3)) * pert,
+                point_valid=np.ones(P + 2 * L, bool),
+                lines_orth=np.zeros((1, 4)), lines_scale=np.ones(1), line_valid=np.zeros(1, bool),
+                p_cam=np.concatenate([ch["p_cam"], cam_of(2 * L)]),
+                p_lm=np.concatenate([ch["p_lm"], np.tile(P + np.arange(2 * L), K)]),
+                p_uv=np.concatenate([uv, np.zeros((2 * K * L, 2))]),
+                p_sigma2=np.ones(n_obs), p_valid=np.ones(n_obs, bool),
+                p_lo=np.concatenate([np.zeros((K * P, 3)), np.repeat(lo, 2, axis=0)]),
+                p_is_line=np.arange(n_obs) >= K * P,
+                l_cam=np.zeros(1, np.int64), l_lm=np.zeros(1, np.int64),
+                l_sobs=np.zeros((1, 2)), l_eobs=np.zeros((1, 2)), l_sigma2=np.ones(1),
+                l_valid=np.zeros(1, bool))
+        else:
+            Lw = plucker_from_two_points(torch.from_numpy(A), torch.from_numpy(B))
+            scale = torch.linalg.norm(Lw, dim=-1)
+            orth = plucker_to_orth(Lw / scale[:, None]).numpy()
+            ch.update(points=Pw + rng.normal(size=(P, 3)) * pert, point_valid=np.ones(P, bool),
+                      lines_orth=orth + rng.normal(size=(L, 4)) * pert * 0.5,
+                      lines_scale=scale.numpy(), line_valid=np.ones(L, bool),
+                      p_sigma2=np.ones(K * P), p_valid=np.ones(K * P, bool),
+                      l_cam=cam_of(L), l_lm=np.tile(np.arange(L), K), l_sobs=s_uv, l_eobs=e_uv,
+                      l_sigma2=np.ones(K * L), l_valid=np.ones(K * L, bool))
+        chunks.append(ch)
+    out = {k: np.stack([c[k] for c in chunks]) for k in chunks[0]}
+    out.update(T_c_w=T0, pose_fixed=np.arange(K) == 0, pose_valid=np.ones(K, bool))
+    return {k: v.astype(np.int64) if v.dtype.kind in "iu"
+            else v.astype(dtype) if v.dtype.kind == "f" else v for k, v in out.items()}

@@ -1,15 +1,18 @@
 """The captured programs on the card (``plslam_tpu_torch.graphs``): graphed
 and eager (``capture=False``) VO, batched VO, local BA, the mapper's
 per-keyframe programs (the fused association, KF2KF, Map2KF, the
-refinement) and the loop closer's BoW transform bit for bit, the launch
-accounting of replays, and a capture that fails raising instead of
-running eagerly.
+refinement), the loop closer's BoW transform and verification pose solve,
+and the programs captured one trip at a time (the chunked GBA on a
+problem of 3 chunks and on phase 5's SLAM map, the PGO on a ring
+closure's pose graph) bit for bit, the launch accounting of replays, and
+a capture that fails raising instead of running eagerly.
 
 Marked ``gpu``; each test skips when no CUDA device is present.  On a
 machine with one (``--noconftest``: its tests/conftest.py imports jax):
     python -m pytest -m gpu --noconftest tests/test_torch_gpu_graphs.py
 """
 
+import copy
 import importlib.util
 import os
 import subprocess
@@ -21,16 +24,18 @@ import torch
 
 import _program_inputs as pi
 from plslam_tpu_torch import graphs
-from plslam_tpu_torch.backend import vocab
+from plslam_tpu_torch.backend import ba, pgo, vocab
 from plslam_tpu_torch.backend.loop import LoopCloser, LoopConfig
 from plslam_tpu_torch.backend.mapping import KeyframeRecord, MapConfig, MapHandler
-from plslam_tpu_torch.convert import stereo_features_from_numpy
+from plslam_tpu_torch.convert import (ba_problem_from_numpy, pose_graph_from_numpy,
+                                      stereo_features_from_numpy)
 from plslam_tpu_torch.batch_vo import BatchedVisualOdometry
 from plslam_tpu_torch.core.camera import StereoCamera
 from plslam_tpu_torch.frontend.frame import FrontendConfig
 from plslam_tpu_torch.frontend.tracker import TrackerConfig
 from plslam_tpu_torch.io import SyntheticScene, circular_trajectory
 from plslam_tpu_torch.ops import cuda_hamming
+from plslam_tpu_torch.pipeline import PLSLAM
 from plslam_tpu_torch.vo import VisualOdometry
 
 pytestmark = pytest.mark.gpu
@@ -184,6 +189,103 @@ def test_graphed_bow_transform_equals_eager(dev):
             assert (st["captured"], st["replays"]) == (2, 4), st
     for g, e in zip(*outs):
         assert chip_smoke.bits_equal(g, e)
+
+
+def _graphed_trips(report: dict, total: int) -> bool:
+    return (report["eager"], report["replayed"], report["captured"]) == \
+        (graphs.WARMUP, total - graphs.WARMUP, True) and report["pool_bytes"] > 0
+
+
+@pytest.mark.parametrize("endpoint", [False, True], ids=["plucker", "endpoint"])
+def test_graphed_chunked_gba_equals_eager(dev, endpoint):
+    """The chunked GBA (f32, as the mapper runs it) on 3 chunks: the two
+    warm-ups, then one captured LM trip replayed for the other 13; every
+    output bit for bit the eager loop's."""
+    d = pi.chunked_problem(seed=1, C=3, K=8, P=96, L=16, endpoint=endpoint, dtype=np.float32)
+    cam = StereoCamera.create(*pi.GBA_INTR)
+    cfg = ba.BAConfig()
+    runs = []
+    for capture in (True, False):
+        report = {}
+        res = ba.bundle_adjust_chunked(ba_problem_from_numpy(d, dev), cam, cfg,
+                                       capture=capture, report=report)
+        runs.append((res, report))
+    (g, greport), (e, ereport) = runs
+    assert _graphed_trips(greport, cfg.iters1 + cfg.iters2), greport
+    assert (ereport["eager"], ereport["replayed"]) == (cfg.iters1 + cfg.iters2, 0)
+    for a, b in zip((g.problem.T_c_w, g.problem.points, g.problem.lines_orth, g.p_active,
+                     g.l_active, g.cost),
+                    (e.problem.T_c_w, e.problem.points, e.problem.lines_orth, e.p_active,
+                     e.l_active, e.cost)):
+        assert chip_smoke.bits_equal(a, b)
+    assert not torch.equal(g.problem.T_c_w.cpu(), torch.from_numpy(d["T_c_w"]))
+
+
+def test_graphed_gba_on_the_slam_map_equals_eager(dev):
+    """PLSLAM at chip_smoke phase 5's configuration over its 20 frames,
+    then the GBA at finish on two copies of the map it left, graphed and
+    eager: the keyframe poses, the landmarks and the trips."""
+    scene = SyntheticScene(n_points=600, n_lines=60, seed=0, width=752, height=480,
+                           fx=435.2, fy=435.2, cx=367.4, cy=252.2)
+    cam, _, frames = chip_smoke.slam_frames(dev, scene)
+    cfg, mcfg = chip_smoke.slam_configs()
+    slam = PLSLAM(cam, cfg, mcfg, device=dev)
+    for i, fr in enumerate(frames):
+        slam.process(*fr, timestamp=0.05 * i)
+    slam.finish(run_gba=False)
+    slam.mapper.flush_ba()
+    out = []
+    for capture in (True, False):
+        m = slam.mapper
+        fresh = MapHandler(m.cam, m.cfg, m.ba_cfg, tracker_cfg=m.tracker_cfg, device=dev,
+                           capture=capture)
+        fresh.map = copy.deepcopy(m.map)
+        fresh.global_bundle_adjustment()
+        out.append((fresh.gba_trips, fresh.keyframe_trajectory(), fresh.map.pt_w.copy()))
+    (gt, gtraj, gpts), (et, etraj, epts) = out
+    total = slam.mapper.ba_cfg.iters1 + slam.mapper.ba_cfg.iters2
+    assert _graphed_trips(gt, total) and (et["eager"], et["replayed"]) == (total, 0)
+    assert len(gtraj) >= 8 and all(np.array_equal(a, b) for a, b in zip(gtraj, etraj))
+    assert np.array_equal(gpts, epts)
+    assert not all(np.array_equal(a, b) for a, b in zip(gtraj, slam.keyframe_trajectory()))
+
+
+def test_graphed_pgo_equals_eager(dev):
+    """The PGO of a closure on the 156-keyframe ring (25 iterations, f64
+    cholesky_ex at 936 x 936): 23 iterations replay one captured
+    iteration; the poses bit for bit the eager loop's."""
+    tg = pose_graph_from_numpy(pi.ring_pose_graph(seed=0, K=156), dev)
+    runs = []
+    for capture in (True, False):
+        report = {}
+        runs.append((pgo.optimize(tg, 25, capture=capture, report=report).T_w_k, report))
+    (g, greport), (e, ereport) = runs
+    assert _graphed_trips(greport, 25), greport
+    assert (ereport["eager"], ereport["replayed"]) == (25, 0)
+    assert chip_smoke.bits_equal(g, e) and not torch.equal(g, tg.T_w_k)
+
+
+@pytest.mark.parametrize("use_lines", [False, True], ids=["points", "points_lines"])
+def test_graphed_verification_equals_eager(dev, use_lines):
+    """The loop verification on two ring keyframes, its pose solve one
+    program per bucket: (ok, DT, pairs) graphed and eager, bit for bit;
+    one capture, every solve a replay."""
+    _, T0, T1, f0, f1 = pi.keyframe_pair(seed=3, step=0.06)
+    outs = []
+    for capture in (True, False):
+        mapper = MapHandler(pi.port_camera(), MapConfig(plucker_lines=False, use_lines=use_lines),
+                            device=dev, capture=capture)
+        for i, (T, f) in enumerate(((T0, f0), (T1, f1))):
+            mapper.map.keyframes.append(KeyframeRecord(i, T, stereo_features_from_numpy(f, dev)))
+        lc = LoopCloser(pi.port_camera(), mapper, LoopConfig())
+        outs.append([lc._verify_candidate(1, 0), lc._verify_candidate(1, 0)])
+        if capture:
+            assert lc.solve_counts == {"solves": 2, "captures": 1, "replays": 2}, \
+                lc.solve_counts
+    for g, e in zip(*outs):
+        assert g[0] and e[0]
+        for a, b in zip(g[1:], e[1:]):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
 
 
 def test_replays_count_their_launches(dev):

@@ -7,7 +7,15 @@ relative with the shipped DBoW2 tf-idf vocabulary, whose normalizing sum
 the two packages add in different orders.  Also: one program per
 (vocabulary, N), a result that survives the next call, the LRU's
 eviction, and a vocabulary retrain dropping the programs built on the old
-vocabulary."""
+vocabulary.
+
+The verification's pose solve (``LoopCloser._solve_pose``, one program
+per bucket) on two ring keyframes, points only and points with lines:
+``_verify_candidate`` returns the same (ok, DT, pt_pairs, ls_pairs) with
+``capture=False`` (every field bit for bit) and as the JAX
+``LoopCloser._verify_candidate`` (its ``jax.jit(trk.optimize_pose)``):
+the flags and index pairs exactly, DT within 1e-5 (f32 Gauss-Newton on
+both sides)."""
 
 import os
 
@@ -18,7 +26,11 @@ import pytest
 import torch
 
 import _program_inputs as pi
+from _map_fixtures import make_camera
+from plslam_tpu.backend import loop as jloop
+from plslam_tpu.backend import mapping as jmap
 from plslam_tpu.backend import vocab as jvocab
+from plslam_tpu.frontend import features as jfeat
 from plslam_tpu_torch.backend import vocab as tvocab
 from plslam_tpu_torch.backend.loop import LoopCloser, LoopConfig
 from plslam_tpu_torch.backend.mapping import (GRAPH_BUCKETS, KeyframeRecord, MapConfig,
@@ -29,6 +41,7 @@ from test_torch_helpers import bits_equal, one_torch_thread  # noqa: F401
 
 CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
 N_KF = 14
+DT_TOL = 1e-5
 
 
 def _jax_voc(voc: tvocab.Vocabulary) -> jvocab.Vocabulary:
@@ -131,3 +144,61 @@ def test_retrain_drops_the_old_vocabulary_programs(closer):
     want = tvocab.transform(closer.voc, torch.from_numpy(kf.pt_desc.copy()),
                             torch.from_numpy(kf.pt_valid.copy()))
     np.testing.assert_array_equal(closer.bow[0]["p"], want.numpy())
+
+
+def _jfeats(f):
+    return jfeat.StereoFeatures(
+        points=jfeat.PointSet(**{k: jnp.asarray(v) for k, v in f["points"].items()}),
+        lines=jfeat.LineSet(**{k: jnp.asarray(v) for k, v in f["lines"].items()}))
+
+
+def _verifiers(use_lines: bool, capture: bool):
+    """The port's and the JAX package's loop closers over the same two
+    ring keyframes (tests/_program_inputs.py), keyframe 1 the candidate
+    of keyframe 0's revisit."""
+    _, T0, T1, f0, f1 = pi.keyframe_pair(seed=3, step=0.06)
+    cfg = dict(plucker_lines=False, use_lines=use_lines)
+    mapper = MapHandler(pi.port_camera(), MapConfig(**cfg), device="cpu", capture=capture)
+    jm = jmap.MapHandler(make_camera(), jmap.MapConfig(**cfg))
+    for i, (T, f) in enumerate(((T0, f0), (T1, f1))):
+        mapper.map.keyframes.append(KeyframeRecord(i, T, stereo_features_from_numpy(f, "cpu")))
+        jm.map.keyframes.append(jmap.KeyframeRecord(i, T, _jfeats(f)))
+    return (LoopCloser(pi.port_camera(), mapper, LoopConfig()),
+            jloop.LoopCloser(make_camera(), jm, jloop.LoopConfig()))
+
+
+@pytest.mark.parametrize("use_lines", [False, True], ids=["points", "points_lines"])
+def test_verification_program_equals_eager_and_jax(use_lines):
+    runs = {}
+    for capture in (True, False):
+        lc, jlc = _verifiers(use_lines, capture)
+        runs[capture] = (lc, lc._verify_candidate(1, 0))
+    (lc, got), (_, eager) = runs[True], runs[False]
+    want = jlc._verify_candidate(1, 0)
+    assert got[0] and eager[0] and want[0]
+    for a, b in zip(got[1:], eager[1:]):
+        assert a.dtype == b.dtype and np.array_equal(a, b)
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_array_equal(got[3], want[3])
+    assert (len(got[3]) > 0) == use_lines
+    np.testing.assert_allclose(got[1], want[1], rtol=0, atol=DT_TOL)
+    assert np.abs(got[1][:3, 3]).max() > 0.01   # the keyframes are apart
+    # one program for the bucket, keyed by lines or none; a second
+    # candidate of the bucket reuses it
+    keys = [k for k in lc.programs if k[0] == "verify"]
+    assert len(keys) == 1 and keys[0][1].use_lines == use_lines
+    again = lc._verify_candidate(1, 0)
+    assert lc.programs.stats()["built"] == 1 and np.array_equal(again[1], got[1])
+    assert lc.solve_counts["solves"] == 2
+
+
+def test_a_verification_keeps_its_result():
+    """The solve's output is a copy: the next solve leaves it as it was."""
+    lc, _ = _verifiers(True, True)
+    kf = lc.mapper.map.keyframes
+    n = len(kf[0].pt_valid)
+    arrays = dict(P=kf[0].pt_P, obs=kf[1].pt_uv[:n], valid=kf[0].pt_valid & kf[1].pt_valid[:n])
+    first = lc._solve_pose(arrays)
+    keep = first.clone()
+    lc._solve_pose(dict(arrays, obs=arrays["obs"] + np.float32(3.0)))
+    assert bits_equal(first, keep) and first.shape == (54,)
