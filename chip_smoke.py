@@ -131,10 +131,24 @@ Phases, each reported on its own lines:
      error to 1e-6 relative), the 190-keyframe ``loop_stress``
      (tests/test_loop_stress.py's properties, Hamming from the
      loop-closure thread) and ``train_vocabulary`` at 1 scene x 2 frames
-     (the files load back); plots only where matplotlib is installed.
+     (the files load back); plots only where matplotlib is installed;
+ 13. bench twins: each benchmark twin's ``run`` in this process on frames
+     already staged (no rendering), its JSON lines printed:
+     ``plslam_tpu_torch.bench`` on phase 4's 24 frames (every frame of its
+     3 windows good, the best window's count equal to bench.py's on the
+     CPU, 2 / 4 / 4 patch / FAST / Hamming launches per timed frame),
+     ``bench_slam`` on phase 5's 20 (keyframes within 1 of bench_slam.py's
+     on the CPU, the program captures inside its timed window, the LM cost
+     after 10 trips under 1e-3 of the start), ``bench_batch_vo`` on phase
+     10's 16 streams (every timed frame of every stream good at every B,
+     the launches per frame) and ``bench_dist_gba`` at N_KF 128 over one
+     NCCL rank per visible card (the error before the GBA equal to the JAX
+     script's to 1e-6 m, its chunk count, every form's point error under
+     the error before it and the mesh forms' within max(1.5x, 0.01 m) of
+     the single-device GBA's); all three kernels launched.
 Phase 4 runs the VO graphed and eagerly over its frames and phase 6
 ``lm_rounds`` six times eagerly and five times graphed on one problem:
-both must repeat bit for bit.  After phases 4, 5, 7, 9, 10 and 12 a line
+both must repeat bit for bit.  After phases 4, 5, 7, 9, 10, 12 and 13 a line
 gives the process's CUDA graphs: captures, replays, and the graphs alive
 with their pools' bytes.  Phase 3 also
 times the batched Hamming launch at (B, 1200, 8)^2 and (B, 256, 8)^2.
@@ -145,7 +159,6 @@ does an import of JAX or of the JAX package (``plslam_tpu``).
 
 import argparse
 import copy
-import functools
 import gc
 import importlib.util
 import json
@@ -294,6 +307,21 @@ JAX_CPU_GBA = {"ours_plucker": 0.004888185405764885, "ours_endpoint": 0.00642239
                "oracle_pt": 0.005751876630915977, "oracle_last": 1.5451575653142723e-08,
                "oracle_iters": 40}
 VOCAB_SCENES, VOCAB_FRAMES = 1, 2
+
+# Phase 13: the benchmark twins (plslam_tpu_torch.bench, bench_slam,
+# bench_batch_vo, bench_dist_gba) through their ``run`` on the frames of
+# phases 4, 5 and 10, held against the unedited JAX programs run on the CPU:
+# bench.py's good frames of its best window (its standard error:
+# good_frames=20/20), bench_slam.py's keyframes ("# keyframes mapped during
+# bench: 10"; the port may map one more or one less: the mapping thread's
+# pace decides whether the last keyframe is in by the end of the window), and
+# scripts/jax_bench_reference.py's values of scripts/bench_dist_gba.py's ring
+# map at N_KF 128: the median point error before the GBA (to 1e-6 m) and the
+# kf-block GBA's chunk count on a mesh of 1, 2, 4 or 8 devices.
+JAX_CPU_BENCH_GOOD = 20
+JAX_CPU_BENCH_SLAM_KF = 10
+JAX_CPU_DIST_GBA_PRE = 0.04611433123828923
+JAX_CPU_DIST_GBA_CHUNKS = {1: 4, 2: 4, 4: 4, 8: 8}
 
 # Phase 3's timing.  Device time: TIMED_LAUNCHES back-to-back calls,
 # captured once in a CUDA graph and replayed between two CUDA events.
@@ -662,11 +690,9 @@ KERNEL_WRAPPERS = ("gather_patches_batch", "fast_score_nms_batch",
 
 
 def _wrappers():
-    from plslam_tpu_torch.ops import cuda_fast, cuda_hamming, cuda_patches
+    from plslam_tpu_torch.bench import KERNELS
 
-    return {"gather_patches_batch": cuda_patches.gather_patches_batch,
-            "fast_score_nms_batch": cuda_fast.fast_score_nms_batch,
-            "hamming_distance_matrix_cuda": cuda_hamming.hamming_distance_matrix_cuda}
+    return KERNELS
 
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -1110,65 +1136,7 @@ def phase_slam(dev, scene, smi):
     e = run_slam(dev, cam, poses, frames, cfg, mcfg, capture=False)
     check_slam("slam", g, e, SLAM_ATE_FLOOR, JAX_CPU_SLAM_ATE, smi, ("local_ba", "assoc"))
     slam_profile(dev, cam, frames, cfg, mcfg, smi)
-    return g["by_thread"], {"graphed": g["fps"], "eager": e["fps"]}, g["ate"]
-
-
-def make_ba_problem_np(K=8, P=512, L=64, noise=0.0, pert=0.02, seed=11):
-    """numpy twin of tests/test_ba.make_problem (same draws, same order):
-    every camera sees every landmark, pose 0 fixed, perturbed start."""
-    rng = np.random.default_rng(seed)
-    poses_xi = np.concatenate([rng.uniform(-0.5, 0.5, (K, 2)), rng.uniform(-0.1, 0.1, (K, 1)),
-                               rng.uniform(-0.05, 0.05, (K, 3))], axis=1)
-    Pw = np.stack([rng.uniform(-3, 3, P), rng.uniform(-2, 2, P), rng.uniform(4, 10, P)], -1)
-    LA = np.stack([rng.uniform(-3, 3, L), rng.uniform(-2, 2, L), rng.uniform(4, 10, L)], -1)
-    LB = LA + np.stack([rng.uniform(-1.5, 1.5, L), rng.uniform(-1.5, 1.5, L),
-                        rng.uniform(-0.5, 0.5, L)], -1)
-    pert_xi = rng.normal(size=(K, 6)) * pert
-    pert_xi[0] = 0.0
-    pert_P = rng.normal(size=(P, 3)) * pert
-    pert_orth = rng.normal(size=(L, 4)) * pert * 0.5
-    noise_uv = rng.normal(size=(K * P, 2)) * noise
-    noise_s = rng.normal(size=(K * L, 2)) * noise
-    noise_e = rng.normal(size=(K * L, 2)) * noise
-    return dict(poses_xi=poses_xi, Pw=Pw, LA=LA, LB=LB, pert_xi=pert_xi, pert_P=pert_P,
-                pert_orth=pert_orth, noise_uv=noise_uv, noise_s=noise_s, noise_e=noise_e)
-
-
-LBA_CAM = (435.2, 435.2, 367.4, 252.2, 0.110074)
-
-
-def local_ba_problem(dev, K=8, P=512, L=64):
-    """bench_slam.py's f32 BA problem on ``dev``: ``make_ba_problem_np``'s
-    draws projected by the LBA_CAM camera."""
-    from plslam_tpu_torch.backend import ba
-    from plslam_tpu_torch.core import lie
-    from plslam_tpu_torch.core.camera import StereoCamera
-    from plslam_tpu_torch.core.plucker import plucker_from_two_points, plucker_to_orth
-
-    d = {k: torch.from_numpy(v).to(dev) for k, v in make_ba_problem_np(K, P, L).items()}
-    cam = StereoCamera.create(*LBA_CAM)
-    T_c_w = lie.inv_se3(lie.exp_se3(d["poses_xi"]))
-    cp = torch.arange(K, device=dev).repeat_interleave(P)
-    lp = torch.arange(P, device=dev).repeat(K)
-    cl = torch.arange(K, device=dev).repeat_interleave(L)
-    ll = torch.arange(L, device=dev).repeat(K)
-    uv = cam.project(lie.transform_point(T_c_w[cp], d["Pw"][lp])) + d["noise_uv"]
-    sA = cam.project(lie.transform_point(T_c_w[cl], d["LA"][ll])) + d["noise_s"]
-    eB = cam.project(lie.transform_point(T_c_w[cl], d["LB"][ll])) + d["noise_e"]
-    Lw = plucker_from_two_points(d["LA"], d["LB"])
-    scale = torch.linalg.norm(Lw, dim=-1)
-    orth = plucker_to_orth(Lw / scale[:, None]) + d["pert_orth"]
-    f32 = torch.float32
-    ones = functools.partial(torch.ones, device=dev)
-    return ba.BAProblem(
-        T_c_w=(lie.exp_se3(d["pert_xi"]) @ T_c_w).to(f32),
-        pose_fixed=torch.arange(K, device=dev) == 0, pose_valid=ones(K, dtype=torch.bool),
-        points=(d["Pw"] + d["pert_P"]).to(f32), point_valid=ones(P, dtype=torch.bool),
-        lines_orth=orth.to(f32), lines_scale=scale.to(f32), line_valid=ones(L, dtype=torch.bool),
-        p_cam=cp, p_lm=lp, p_uv=uv.to(f32), p_sigma2=ones(K * P, dtype=f32),
-        p_valid=ones(K * P, dtype=torch.bool),
-        l_cam=cl, l_lm=ll, l_sobs=sA.to(f32), l_eobs=eB.to(f32),
-        l_sigma2=ones(K * L, dtype=f32), l_valid=ones(K * L, dtype=torch.bool))
+    return g["by_thread"], {"graphed": g["fps"], "eager": e["fps"]}, g["ate"], frames
 
 
 def phase_local_ba(dev, smi):
@@ -1177,6 +1145,7 @@ def phase_local_ba(dev, smi):
     ``bundle_adjust`` against eager bit for bit."""
     from plslam_tpu_torch import graphs
     from plslam_tpu_torch.backend import ba
+    from plslam_tpu_torch.bench_slam import LBA_CAM, local_ba_problem
     from plslam_tpu_torch.core.camera import StereoCamera
 
     K, P, L = 8, 512, 64
@@ -2485,6 +2454,94 @@ def phase_eval(dev, smi, frames):
     return launches, summary
 
 
+def phase_bench(dev, smi, frames, slam_pairs, streams):
+    """Phase 13: each benchmark twin's ``run`` in this process on frames
+    already staged (phase 4's for ``bench``, phase 5's for ``bench_slam``,
+    phase 10's streams for ``bench_batch_vo``), ``bench_dist_gba`` at N_KF
+    128 over one NCCL rank per visible card; every JSON line printed, each
+    held to its bar.  Returns the launches by kernel over the phase."""
+    from plslam_tpu_torch import bench, bench_batch_vo, bench_dist_gba, bench_slam
+
+    t_phase = time.perf_counter()
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+
+    def progress(name):
+        return lambda msg: say(f"bench twins: {name}: {msg}")
+
+    # bench: every frame of every window good, as many as bench.py's best
+    # window on the CPU, 2 / 4 / 4 launches per timed frame
+    vo = bench.run(frames, device=dev, say=progress("bench"))
+    say(json.dumps(vo["line"]))
+    goods = [[bool(r.good) for r in w] for w in vo["results"]]
+    say(f"bench twins: bench good frames per window {[sum(g) for g in goods]} of "
+        f"{bench.N_FRAMES}, best window {vo['good']}/{bench.N_FRAMES} (JAX bench.py on the CPU "
+        f"{JAX_CPU_BENCH_GOOD}/{bench.N_FRAMES}); launches per timed frame {vo['launches']} on "
+        f"{smi}")
+    if not (all(map(all, goods)) and vo["good"] == JAX_CPU_BENCH_GOOD):
+        raise AssertionError(f"bench: good frames {goods}, JAX {JAX_CPU_BENCH_GOOD}")
+    if vo["launches"] != {k: float(n) for k, n in FRAME_LAUNCHES.items()}:
+        raise AssertionError(f"bench: launches per frame {vo['launches']}, want {FRAME_LAUNCHES}")
+
+    # bench_slam: the keyframes within 1 of JAX's, the LM at phase 6's bar
+    sl = bench_slam.bench_slam(slam_pairs, device=dev)
+    lm = bench_slam.bench_ba_iters(device=dev)
+    for line in bench_slam.json_lines(sl["fps"], lm["iters_per_s"]):
+        say(json.dumps(line))
+    say(f"bench twins: bench_slam keyframes {sl['n_kf']} (JAX bench_slam.py on the CPU "
+        f"{JAX_CPU_BENCH_SLAM_KF}), good {sum(sl['good'])}/{len(sl['good'])}, program captures "
+        f"inside the timed window {sl['captures'] or 'none'}; LM cost {lm['cost0']:.6g} -> "
+        f"{lm['cost']:.6g} after {bench_slam.LM_ITERS} trips on {smi}")
+    if abs(sl["n_kf"] - JAX_CPU_BENCH_SLAM_KF) > 1 or not all(sl["good"]):
+        raise AssertionError(f"bench_slam: {sl['n_kf']} keyframes (JAX {JAX_CPU_BENCH_SLAM_KF}), "
+                             f"good {sl['good']}")
+    if not (np.isfinite(lm["cost"]) and lm["cost"] < 1e-3 * lm["cost0"]):
+        raise AssertionError(f"bench_slam: LM did not converge: {lm['cost0']} -> {lm['cost']}")
+
+    # bench_batch_vo: every stream's every timed frame good at every B
+    by_stream = [[tuple(torch.from_numpy(st[i, side]).to(dev) for side in (0, 1))
+                  for i in range(st.shape[0])] for st in streams]
+    bv = bench_batch_vo.run(by_stream, device=dev, say=progress("bench_batch_vo"))
+    del by_stream
+    for line in bv["lines"]:
+        say(json.dumps(line))
+    for B, r in bv["runs"].items():
+        if not r["good"].all():
+            raise AssertionError(f"bench_batch_vo B={B}: frames lost tracking (frame, stream): "
+                                 f"{np.argwhere(~r['good']).tolist()}")
+        if r["launches"] != {k: float(n) for k, n in FRAME_LAUNCHES.items()}:
+            raise AssertionError(f"bench_batch_vo B={B}: launches per frame {r['launches']}")
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+
+    # bench_dist_gba: the JAX script's ring map and chunks; every form under
+    # the error before it, the mesh forms within max(1.5x, 0.01 m) of single
+    dg = bench_dist_gba.run(device=dev)
+    say(json.dumps(dg["line"]))
+    w, line = dg["world"], dg["line"]
+    meshes = bench_dist_gba.mesh_names(w, dev.type)
+    want_chunks = JAX_CPU_DIST_GBA_CHUNKS.get(w)
+    say(f"bench twins: bench_dist_gba over {w} rank(s): pre_err {dg['pre_err']!r} m (JAX "
+        f"{JAX_CPU_DIST_GBA_PRE!r}), pt_err {dg['pt_err']}, chunks "
+        f"{[line[m]['chunks'] for m in meshes]} (JAX {want_chunks}) on {smi}")
+    if not abs(dg["pre_err"] - JAX_CPU_DIST_GBA_PRE) <= 1e-6:
+        raise AssertionError(f"bench_dist_gba: pre_err {dg['pre_err']}, JAX {JAX_CPU_DIST_GBA_PRE}")
+    if want_chunks is not None and any(line[m]["chunks"] != want_chunks for m in meshes):
+        raise AssertionError(f"bench_dist_gba: chunks {line}, JAX {want_chunks}")
+    single = dg["pt_err"]["single"]
+    for form, err in dg["pt_err"].items():
+        if not (err < dg["pre_err"] and (form == "single" or err < max(1.5 * single, 0.01))):
+            raise AssertionError(f"bench_dist_gba {form}: pt_err {err}, before {dg['pre_err']}, "
+                                 f"single {single}")
+    say(f"bench twins: phase 13 took {time.perf_counter() - t_phase:.3f} s; launches {launches} "
+        f"on {smi}")
+    for k in KERNEL_WRAPPERS:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on the bench path")
+    return launches, [vo["line"], *bench_slam.json_lines(sl["fps"], lm["iters_per_s"]),
+                      *bv["lines"], line]
+
+
 def say_graphs(after: str, smi: str) -> None:
     """The process's CUDA graphs so far: captures, replays, the graphs
     still alive once garbage is collected and their pools' bytes."""
@@ -2578,7 +2635,7 @@ def run_phases(args, dev, smi, kind, fixture, writer, render=None, eval_render=N
         return 0
     launches, fps, ate, vo_prof = phase_main_path(dev, scene, poses, frames, smi)
     say_graphs("main path", smi)
-    slam_launches, slam_fps, slam_ate = phase_slam(dev, scene, smi)
+    slam_launches, slam_fps, slam_ate, slam_pairs = phase_slam(dev, scene, smi)
     say_graphs("slam", smi)
     lm_ips = phase_local_ba(dev, smi)
     ep_launches, ep_fps, ep_ate = phase_endpoint_slam(dev, scene, smi)
@@ -2592,14 +2649,17 @@ def run_phases(args, dev, smi, kind, fixture, writer, render=None, eval_render=N
     dist_launches, dist_ms = phase_dist(dev, smi, streams)
     eval_launches, ev = phase_eval(dev, smi, eval_frames)
     say_graphs("eval", smi)
+    bench_launches, bench_lines = phase_bench(dev, smi, frames, slam_pairs, streams)
+    say_graphs("bench twins", smi)
     for k in report:
         by_thread = {"slam": slam_launches[k["name"]], "slam_endpoint": ep_launches[k["name"]],
                      "loop": loop_launches[k["name"]], "disk": disk_launches[k["name"]],
                      "eval": eval_launches[k["name"]]}
         by_path = {"vo": launches[k["name"]], **by_thread, "batch": batch_launches[k["name"]],
-                   "rgbd": rgbd_launches[k["name"]], "dist": dist_launches[k["name"]]}
+                   "rgbd": rgbd_launches[k["name"]], "dist": dist_launches[k["name"]],
+                   "bench": bench_launches[k["name"]]}
         k["launches"] = (by_path["vo"] + by_path["batch"] + by_path["rgbd"] + by_path["dist"]
-                         + sum(sum(v.values()) for v in by_thread.values()))
+                         + by_path["bench"] + sum(sum(v.values()) for v in by_thread.values()))
         k["launches_by_path"] = by_path
     assert_no_jax()
     say(f"main path: graphed {fps['graphed']:.3f}, eager {fps['eager']:.3f} frames/s (median "
@@ -2625,6 +2685,9 @@ def run_phases(args, dev, smi, kind, fixture, writer, render=None, eval_render=N
         f"production line wrong-match rate {ev['lmq_production']:.2f}%; endpoint_gba_ab median "
         f"point errors (a, b, oracle) {[round(x, 6) for x in ev['gba']]} m; loop stress "
         f"closures {ev['closures']} on {smi}")
+    walls = {k: v["wall_s"] for k, v in bench_lines[-1].items() if isinstance(v, dict)}
+    say("bench twins: " + "; ".join(f"{ln['metric']} {ln['value']}" for ln in bench_lines
+                                    if "metric" in ln) + f"; ring GBA wall s {walls} on {smi}")
     say(json.dumps({"batch_vo": list(batch_rows.values())}))
     say(json.dumps({"kernels": report}))
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -30,6 +30,7 @@ from plslam_tpu_torch.backend.mapping import KeyframeRecord, MapConfig, MapHandl
 from plslam_tpu_torch.convert import (ba_problem_from_numpy, pose_graph_from_numpy,
                                       stereo_features_from_numpy)
 from plslam_tpu_torch.batch_vo import BatchedVisualOdometry
+from plslam_tpu_torch.bench_slam import LBA_CAM, local_ba_problem
 from plslam_tpu_torch.core.camera import StereoCamera
 from plslam_tpu_torch.frontend.frame import FrontendConfig
 from plslam_tpu_torch.frontend.tracker import TrackerConfig
@@ -115,9 +116,9 @@ def test_graphed_local_ba_equals_eager(dev):
     """The mapper's bucket program (uploads, bundle_adjust, Plücker output,
     packed result) graphed and eager on bench_slam.py's problem; a second
     solve of the bucket replays and leaves the first result as it was."""
-    prob = chip_smoke.local_ba_problem("cpu")
+    prob = local_ba_problem("cpu")
     prob = type(prob)(*(None if x is None else x.numpy() for x in prob))
-    cam = StereoCamera.create(*chip_smoke.LBA_CAM)
+    cam = StereoCamera.create(*LBA_CAM)
     outs = []
     for capture in (True, False):
         mapper = MapHandler(cam, MapConfig(), device=dev, capture=capture)

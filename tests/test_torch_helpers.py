@@ -166,3 +166,51 @@ def one_thread():
     torch.set_num_threads(1)
     yield
     torch.set_num_threads(n)
+
+
+def json_literals(path: str) -> list[dict]:
+    """The dict literals with string keys in a program's source text (the
+    JSON objects it prints): per literal its keys in order (None for a
+    ``**`` splat), its ``"metric"`` value as a regular expression (an
+    f-string's fields match any text; None without a metric) and the
+    subscript it is assigned to (``results["mesh8"] = {...}``; else None)."""
+    import ast
+    import re
+
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    targets = {}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Assign) and isinstance(node.value, ast.Dict)
+                and isinstance(node.targets[0], ast.Subscript)
+                and isinstance(node.targets[0].slice, ast.Constant)):
+            targets[id(node.value)] = node.targets[0].slice.value
+    out = []
+    for node in ast.walk(tree):
+        if not (isinstance(node, ast.Dict) and node.keys and all(
+                k is None or (isinstance(k, ast.Constant) and isinstance(k.value, str))
+                for k in node.keys)):
+            continue
+        keys = [None if k is None else k.value for k in node.keys]
+        metric = None
+        if "metric" in keys:
+            v = node.values[keys.index("metric")]
+            if isinstance(v, ast.Constant):
+                metric = re.escape(v.value)
+            elif isinstance(v, ast.JoinedStr):
+                metric = "".join(re.escape(p.value) if isinstance(p, ast.Constant) else ".+"
+                                 for p in v.values)
+        out.append({"keys": keys, "metric": metric, "target": targets.get(id(node))})
+    return out
+
+
+def assert_printed_like(line: dict, literals: list[dict]) -> None:
+    """``line`` carries exactly the keys, in order, of one of ``literals``
+    (``json_literals``) and a metric name its metric pattern matches."""
+    import re
+
+    for lit in literals:
+        if lit["keys"] == list(line) and (lit["metric"] is None
+                                          or re.fullmatch(lit["metric"], line["metric"])):
+            return
+    raise AssertionError(f"no JSON object of the JAX program has the keys and metric of {line}")

@@ -22,6 +22,8 @@ ROOT = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
 # the evaluation programs that run on the card: python -m plslam_tpu_torch.<name>
 EVAL_MODULES = ("line_match_quality", "compare_line_modes", "e2e_robust", "endpoint_gba_ab",
                 "loop_stress", "train_vocabulary")
+# the benchmark twins: python -m plslam_tpu_torch.<name>
+BENCH_MODULES = ("bench", "bench_slam", "bench_batch_vo", "bench_dist_gba")
 
 PROBE = r"""
 import importlib, importlib.util, json, pkgutil, sys
@@ -47,7 +49,7 @@ def test_port_imports_no_jax_package():
                 "plslam_tpu_torch.batch_vo", "plslam_tpu_torch.frontend.rgbd",
                 "plslam_tpu_torch.core.segment", "plslam_tpu_torch.io.ring_map",
                 "plslam_tpu_torch.io.ring_world",
-                *(f"plslam_tpu_torch.{m}" for m in EVAL_MODULES),
+                *(f"plslam_tpu_torch.{m}" for m in EVAL_MODULES + BENCH_MODULES),
                 "plslam_tpu_torch.evaluate_ate", "plslam_tpu_torch.viz",
                 *(f"plslam_tpu_torch.parallel.{m}" for m in
                   ("mesh", "launch", "dist_ba", "dist_gba", "dist_match", "multihost"))):
@@ -109,3 +111,19 @@ def test_evaluation_programs_default_to_the_card(name, monkeypatch):
     with pytest.raises(SystemExit):
         importlib.import_module(f"plslam_tpu_torch.{name}").main([])
     assert seen["device"] == "cuda"
+
+
+@pytest.mark.parametrize("name", BENCH_MODULES)
+def test_benchmark_twins_need_the_card(name):
+    """Without CUDA and without ``--device cpu`` each twin exits non-zero
+    before any work; its ``run`` defaults to the card."""
+    import importlib
+
+    mod = importlib.import_module(f"plslam_tpu_torch.{name}")
+    run = mod.bench_slam if name == "bench_slam" else mod.run
+    assert inspect.signature(run).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit) as e:
+        mod.main([])
+    assert e.value.code not in (0, None)
