@@ -24,9 +24,12 @@ Phases, each reported on its own lines:
      launches per frame through the replays' accounting, one replay and
      one graph launch per frame, no host sync in a graphed step, every
      frame's ``T_f_w`` bit-identical to the same step with
-     ``capture=False``; frames/s of both forms in interleaved windows, and
-     a profile of each (device busy, device kernels and host CUDA calls
-     per frame); the ms of the eager ``initialize``;
+     ``capture=False``; frames/s of both forms in interleaved windows from
+     the state after the warm-up frames and of one more graphed window in
+     the first loop's form, each with the card's SM clock and power draw
+     at its end, and whether the graphed windows' frames equal the first
+     loop's; a profile of each form (device busy, device kernels and host
+     CUDA calls per frame); the ms of the eager ``initialize``;
   5. SLAM path: ``PLSLAM`` at bench_slam.py's configuration (tracking, the
      mapping worker thread, deferred local BA, chunked GBA at finish),
      the tracker, the fused association and the local BA graphed, beside
@@ -145,10 +148,23 @@ Phases, each reported on its own lines:
      NCCL rank per visible card (the error before the GBA equal to the JAX
      script's to 1e-6 m, its chunk count, every form's point error under
      the error before it and the mesh forms' within max(1.5x, 0.01 m) of
-     the single-device GBA's); all three kernels launched.
+     the single-device GBA's); all three kernels launched;
+ 14. measurement programs and the demo, at full width, each graphed and
+     held bit for bit against its ``capture=False`` form:
+     ``plslam_tpu_torch.roofline`` (every program's ms, device-busy ms,
+     counted work and bound finite, its table and JSON line printed),
+     ``profile_detect`` (every row), ``ab_fused_step`` at 2 rounds on phase
+     4's frames (every timed frame of both GN forms good, each form's last
+     window equal to the same window run eagerly, its ATE under phase 4's
+     floor; each window's SM clock and power draw), ``profile_mapping`` on
+     phase 4's first 15 frames (the graphed map's keyframe poses equal to
+     the eager map's) and a 20-frame ``demo_synthetic`` (every frame good,
+     keyframe ATE under max(2x the JAX demo's on the CPU, 0.01 m), the
+     artifacts written, the graphed keyframe trajectory equal to the eager
+     one's); all three kernels launched.
 Phase 4 runs the VO graphed and eagerly over its frames and phase 6
 ``lm_rounds`` six times eagerly and five times graphed on one problem:
-both must repeat bit for bit.  After phases 4, 5, 7, 9, 10, 12 and 13 a line
+both must repeat bit for bit.  After phases 4, 5, 7, 9, 10, 12, 13 and 14 a line
 gives the process's CUDA graphs: captures, replays, and the graphs alive
 with their pools' bytes.  Phase 3 also
 times the batched Hamming launch at (B, 1200, 8)^2 and (B, 256, 8)^2.
@@ -172,6 +188,10 @@ import time
 
 import numpy as np
 import torch
+
+from plslam_tpu_torch.roofline import (F32_ADD_PER_S, F32_MINMAX_PER_S,  # noqa: F401
+                                       FAST_CANDIDATE_OPS, FAST_PX_OPS, INT8_OPS_PER_S, bound,
+                                       fast_bytes, fast_ops, hamming_work, patches_bytes)
 
 # ATE (m, no alignment, all 24 poses) of the JAX package's VisualOdometry
 # on the same 24 frames, run on CPU; the port must stay within 2x of it.
@@ -323,28 +343,25 @@ JAX_CPU_BENCH_SLAM_KF = 10
 JAX_CPU_DIST_GBA_PRE = 0.04611433123828923
 JAX_CPU_DIST_GBA_CHUNKS = {1: 4, 2: 4, 4: 4, 8: 8}
 
+# Phase 14: the measurement programs and the demo (plslam_tpu_torch.roofline,
+# profile_detect, ab_fused_step, profile_mapping, demo_synthetic).  The JAX
+# package's examples/demo_synthetic.py 20 on the CPU: 10 keyframes, keyframe
+# ATE (aligned) 0.04127278800852883 m, from its trajectory.txt.
+AB_ROUNDS = 2
+DEMO_FRAMES = 20
+JAX_CPU_DEMO_ATE = 0.04127278800852883
+JAX_CPU_DEMO_KF = 10
+DEMO_ATE_FLOOR = max(2.0 * JAX_CPU_DEMO_ATE, 0.01)
+
 # Phase 3's timing.  Device time: TIMED_LAUNCHES back-to-back calls,
 # captured once in a CUDA graph and replayed between two CUDA events.
 TIMED_LAUNCHES = 100
 GRAPH_REPLAYS = 5
 PLAIN_REPS = 10
-# Published peaks of one H100 SXM at its 700 W limit (NVIDIA data sheet):
-# device memory, dense int8 tensor cores, float32 outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-INT8_OPS_PER_S = 1979e12
-F32_OPS_PER_S = 67e12
-# The float32 peak counts an FMA as two operations at 128 per clock per SM;
-# an add issues at that rate, min, max and compare at 64 per clock per SM
-# (the CUDA C++ guide's throughput table for compute capability 9.0).
-F32_ADD_PER_S = F32_OPS_PER_S / 2
-F32_MINMAX_PER_S = F32_OPS_PER_S / 4
-# FAST + NMS float32 operations (csrc/fast.cu): every pixel pays the
-# compass test (4 differences, 8 compares) and the 3x3 NMS (9 max, 2
-# compares); a pixel that passes the compass test pays 12 more ring
-# differences, 2 x 57 min/max for the bright and dark window folds, bright
-# vs dark, and the threshold (compare + select).
-FAST_PX_OPS = (4, 8 + 11)
-FAST_CANDIDATE_OPS = (12, 2 * 57 + 1 + 2)
+# The H100's published peaks (HBM_BYTES_PER_S, INT8_OPS_PER_S, F32_OPS_PER_S
+# and the f32 add and min/max rates), ``bound`` and the kernels' work
+# formulas (FAST's operations counted on the data) are the package's
+# (plslam_tpu_torch/roofline.py), which its roofline program uses too.
 # Hamming matrices of one VO frame: stereo and f2f, points and lines
 HAMMING_VO = {(1200, 1200): 2, (256, 256): 2}
 HAMMING_SHAPES = ((1200, 1200), (256, 256), (2048, 1200), (160, 160), (24, 24))
@@ -415,34 +432,6 @@ def stream_ms(fn, reps: int = PLAIN_REPS) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def bound(nbytes: float, *ops: tuple[float, float]) -> tuple[float, str]:
-    """Least time (ms) the card could take: the larger of the bytes over the
-    memory rate and the operations, (count, peak rate for their type) pairs,
-    each over its rate."""
-    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-    t_ops = 1e3 * sum(n / rate for n, rate in ops)
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
-def fast_ops(imgs: torch.Tensor, thr: torch.Tensor) -> tuple[tuple[float, float], ...]:
-    """FAST + NMS's float32 operations on these images, as (count, rate)
-    pairs: the compass test of csrc/fast.cu's first pass, in plain torch,
-    counts the pixels that go on to the window folds (zero outside the
-    image, as the kernel pads)."""
-    c = torch.nn.functional.pad(imgs, (3, 3, 3, 3))
-    H, W = imgs.shape[1:]
-    ctr = c[:, 3:3 + H, 3:3 + W]
-    e0, e8 = c[:, 0:H, 3:3 + W] - ctr, c[:, 6:6 + H, 3:3 + W] - ctr
-    e4, e12 = c[:, 3:3 + H, 6:6 + W] - ctr, c[:, 3:3 + H, 0:W] - ctr
-    th = thr[:, None, None]
-    bright = ((e0 > th) | (e8 > th)) & ((e4 > th) | (e12 > th))
-    dark = ((e0 < -th) | (e8 < -th)) & ((e4 < -th) | (e12 < -th))
-    n_px, n_cand = imgs.numel(), int((bright | dark).sum())
-    adds = FAST_PX_OPS[0] * n_px + FAST_CANDIDATE_OPS[0] * n_cand
-    minmax = FAST_PX_OPS[1] * n_px + FAST_CANDIDATE_OPS[1] * n_cand
-    return (adds, F32_ADD_PER_S), (minmax, F32_MINMAX_PER_S)
 
 
 def check_equal(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
@@ -575,7 +564,7 @@ def phase_kernels(dev, levels, pair, card, flat=None):
         ys = (torch.clamp(y0.long(), -P, H)[..., None] + P + ar)[..., :, None]
         xs = (torch.clamp(x0.long(), -P, W)[..., None] + P + ar)[..., None, :]
         bi = torch.arange(B, device=dev)[:, None, None, None]
-        nbytes = imgs.numel() * 4 + 2 * y0.numel() * 4 + want.numel() * 4
+        nbytes = patches_bytes(imgs, y0, P)
         row = time_shape((B, N, P, P),
                          lambda: cuda_patches.gather_patches_batch(imgs, y0, x0, P),
                          lambda: cuda_patches.gather_patches_plain(imgs, y0, x0, P),
@@ -611,17 +600,16 @@ def phase_kernels(dev, levels, pair, card, flat=None):
                 errs.append(check_equal(f"fast nms L{li} {kind}", nms[:, 4:-4, 4:-4],
                                         nms_p[:, 4:-4, 4:-4]))
             imgs = lvl.contiguous()
-            px = imgs.numel()
             row = time_shape(tuple(imgs.shape),
                              lambda: cuda_fast.fast_score_nms_batch(imgs, thr),
                              lambda: cuda_fast.fast_score_nms_plain(imgs, thr), {},
-                             12 * px + 4 * thr.numel(), *fast_ops(imgs, thr),
+                             fast_bytes(imgs, thr), *fast_ops(imgs, thr),
                              launches=TIMED_LAUNCHES if stack is pair else 20)
             # the kernel's work depends on the data: noise makes most pixels candidates
             row["device_ms_noise"] = graph_ms(
                 lambda: cuda_fast.fast_score_nms_batch(noise, thr),
                 TIMED_LAUNCHES if stack is pair else 20)
-            row["bound_ms_noise"] = bound(12 * px + 4 * thr.numel(), *fast_ops(noise, thr))[0]
+            row["bound_ms_noise"] = bound(fast_bytes(noise, thr), *fast_ops(noise, thr))[0]
             (rows if stack is pair else batched).append(row)
             say(f"kernel fast L{li} {tuple(imgs.shape)}: exact; device {row['device_ms']:.6f} ms "
                 f"(bound {row['bound_ms']:.6f} ms by {row['bound_by']}, share "
@@ -648,9 +636,10 @@ def phase_kernels(dev, levels, pair, card, flat=None):
         got = cuda_hamming.hamming_distance_matrix_cuda(d1, d2)
         want = cuda_hamming.hamming_plain(d1, d2)
         errs.append(check_equal(f"hamming {n1}x{n2}", got, want))
+        nbytes, ops = hamming_work(d1, d2)
         row = time_shape((n1, n2), lambda: cuda_hamming.hamming_distance_matrix_cuda(d1, d2),
                          lambda: cuda_hamming.hamming_plain(d1, d2), hamming_library(d1, d2),
-                         (n1 + n2) * 32 + n1 * n2 * 4, (2.0 * n1 * n2 * 256, INT8_OPS_PER_S))
+                         nbytes, (ops, INT8_OPS_PER_S))
         rows.append(row)
         say(f"kernel hamming {n1}x{n2}: exact; device {row['device_ms']:.6f} ms (bound "
             f"{row['bound_ms']:.6f} ms by {row['bound_by']}, share {row['share']:.3f}), "
@@ -667,9 +656,10 @@ def phase_kernels(dev, levels, pair, card, flat=None):
             errs.append(check_equal(f"hamming batched {B}x{n}x{n}",
                                     cuda_hamming.hamming_distance_matrix_cuda(d1, d2),
                                     cuda_hamming.hamming_plain(d1, d2)))
+            nbytes, ops = hamming_work(d1, d2)
             row = time_shape((B, n, n), lambda: cuda_hamming.hamming_distance_matrix_cuda(d1, d2),
                              lambda: cuda_hamming.hamming_plain(d1, d2), hamming_library(d1, d2),
-                             B * (2 * n * 32 + n * n * 4), (2.0 * B * n * n * 256, INT8_OPS_PER_S))
+                             nbytes, (ops, INT8_OPS_PER_S))
             batched.append(row)
             say(f"kernel hamming batched {B}x{n}x{n}: exact; device {row['device_ms']:.6f} ms "
                 f"(bound {row['bound_ms']:.6f} ms by {row['bound_by']}, share "
@@ -710,6 +700,7 @@ def phase_main_path(dev, scene, poses, frames, smi):
     """VisualOdometry through the kernels at the bench configuration: the
     graphed step (one CUDA-graph replay per frame) against the same step
     with ``capture=False``."""
+    from plslam_tpu_torch.ab_fused_step import clocks as ab_clocks
     from plslam_tpu_torch.core.camera import StereoCamera
     from plslam_tpu_torch.frontend.frame import FrontendConfig
     from plslam_tpu_torch.frontend.tracker import TrackerConfig
@@ -768,18 +759,30 @@ def phase_main_path(dev, scene, poses, frames, smi):
         raise AssertionError(f"the graphed VO step departs from the eager one: frames {same}")
 
     # frames/s of both forms in interleaved windows over the timed frames,
-    # each from the state after the warm-up frames
+    # each from the state after the warm-up frames; then the graphed step
+    # in the first loop's form (initialize, the warm-up frames, the timed
+    # frames) once more; the card's SM clock and power draw after each
+    # window, and whether each graphed form's frames equal the first loop's
     timed = frames[N_WARMUP + 1:N_WARMUP + 1 + N_FRAMES]
-    fps = {"graphed": [], "eager": []}
-    for name in ("graphed", "eager") * VO_WINDOWS:
-        v = vo if name == "graphed" else eager
-        v.state = warm_state
+    fps = {"graphed": [], "eager": [], "graphed_init": []}
+    clocks, same_form = [], {}
+    for name in ("graphed", "eager") * VO_WINDOWS + ("graphed_init",):
+        v = vo if name != "eager" else eager
+        if name == "graphed_init":
+            v.initialize(*frames[0])
+            for i in range(1, N_WARMUP + 1):
+                v.process(*frames[i])
+        else:
+            v.state = warm_state
         _sync(dev)
         t = time.perf_counter()
-        for f in timed:
-            v.process(*f)
+        out = [v.process(*f) for f in timed]
         _sync(dev)
         fps[name].append(len(timed) / (time.perf_counter() - t))
+        clocks.append(f"{name} {fps[name][-1]:.3f} [{ab_clocks(dev)}]")
+        if name != "eager":
+            same_form[name] = all(results_equal(a, b) for a, b in zip(out, results[N_WARMUP:]))
+        del out
     prof = {}
     for name, v in (("graphed", vo), ("eager", eager)):
         v.state = warm_state
@@ -791,8 +794,11 @@ def phase_main_path(dev, scene, poses, frames, smi):
             f"of wall), {w['kernels']:.1f} device kernels/frame, {w['host_cuda_calls']:.1f} "
             f"host CUDA calls/frame, {w['graph_launches']:.1f} graph launches/frame on {smi}")
     say(f"main path frames/s in interleaved windows of {len(timed)} frames: graphed "
-        f"{[round(x, 3) for x in fps['graphed']]}, eager {[round(x, 3) for x in fps['eager']]} "
-        f"on {smi}")
+        f"{[round(x, 3) for x in fps['graphed']]}, eager {[round(x, 3) for x in fps['eager']]}, "
+        f"graphed in the first loop's form {[round(x, 3) for x in fps['graphed_init']]} (the "
+        f"first loop {N_FRAMES / dt:.3f}) on {smi}")
+    say(f"main path windows, frames/s [SM clock, power draw at the window's end]: "
+        f"{'; '.join(clocks)}; the graphed windows' frames equal the first loop's: {same_form}")
     say(f"main path: initialize (eager: the first pair's detection and stereo match) "
         f"{init_ms:.3f} ms on {smi}")
     say(f"main path graph: captured in {capture_s:.3f} s (prewarm: {fcfg.n_points} points, "
@@ -2542,15 +2548,128 @@ def phase_bench(dev, smi, frames, slam_pairs, streams):
                       *bv["lines"], line]
 
 
+def phase_programs(dev, smi, frames, poses):
+    """Phase 14: the measurement programs and the demo on the card at full
+    width, each graphed and held bit for bit against its ``capture=False``
+    form.  Returns the launches by kernel over the phase."""
+    from plslam_tpu_torch import (ab_fused_step, demo_synthetic, profile_detect,
+                                  profile_mapping, roofline)
+    from plslam_tpu_torch.bench import SCENE, WIDTHS, camera
+    from plslam_tpu_torch.frontend.frame import FrontendConfig
+    from plslam_tpu_torch.frontend.tracker import TrackerConfig
+    from plslam_tpu_torch.io import SyntheticScene, ate_rmse
+    from plslam_tpu_torch.vo import VisualOdometry
+
+    t_phase = time.perf_counter()
+    wrappers = _wrappers()
+    for fn in wrappers.values():
+        fn.launches = 0
+    # a capture cannot take back the earlier phases' cached blocks (the
+    # allocator releases none while a capture is underway)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # roofline: every program graphed, its output on input 0 the eager one's
+    rf = roofline.run(dev)
+    for line in roofline.report(rf):
+        say(f"roofline: {line}")
+    say(json.dumps({"roofline": [{k: v for k, v in r.items() if k != "kernels"}
+                                 for r in rf["rows"]], "card": smi}))
+    # the profiler's busy time and the peaks' bound exist on the card only
+    keys = ("ms", "gflop", "mb_unfused", "mb_program") + (
+        ("busy_ms", "bound_ms") if dev.type == "cuda" else ())
+    for r in rf["rows"]:
+        say(f"roofline: {r['stage']}: kernels {r['kernels']}")
+        vals = [r[k] for k in keys]
+        if not (r["graphed"] and r["bits_equal"] and all(np.isfinite(vals))
+                and min(vals) > 0):
+            raise AssertionError(f"roofline {r['stage']}: {r}")
+
+    # profile_detect: every row graphed, bit for bit its eager output
+    pdr = profile_detect.run(dev, say=lambda m: say(f"profile_detect: {m}"))
+    bad = [r["stage"] for r in pdr["rows"] if not (r["graphed"] and r["bits_equal"]
+                                                   and np.isfinite(r["ms"]))]
+    if bad:
+        raise AssertionError(f"profile_detect rows not graphed or not bit for bit: {bad}")
+
+    # ab_fused_step on phase 4's frames: every timed frame good in both
+    # forms, each form's last window bit for bit the same window run
+    # eagerly, the scan form's poses within the phase-4 ATE floor
+    ab = ab_fused_step.run(AB_ROUNDS, frames=frames, device=dev,
+                           say=lambda m: say(f"ab_fused_step: {m}"))
+    say(f"ab_fused_step: median {ab['median']}, best {ab['best']} frames/s on {smi}")
+    first = ab_fused_step.N_WARMUP
+    gt = np.stack([p[:3, 3] for p in poses[first:first + ab_fused_step.N_FRAMES]])
+    cam = camera(SyntheticScene(**SCENE))
+    for name, early in (("A(early)", True), ("B(scan)", False)):
+        res = ab["results"][name]
+        vo = VisualOdometry(cam, FrontendConfig(**WIDTHS), TrackerConfig(early_exit=early),
+                            device=dev, capture=False)
+        _, ref = ab_fused_step.window(vo, frames)
+        same = sum(results_equal(a, b) for a, b in zip(res, ref))
+        est = np.stack([r.T_f_w.cpu().numpy()[:3, 3] for r in res])
+        ate = ate_rmse(est, gt, align=False)
+        good = [bool(r.good) for r in res]
+        say(f"ab_fused_step {name}: {sum(good)}/{len(good)} timed frames good, {same}/"
+            f"{len(res)} results bit for bit the eager window's, ATE {ate:.6f} m (floor "
+            f"{ATE_FLOOR:.6f}) on {smi}")
+        if not (all(good) and same == len(res) and ate <= ATE_FLOOR):
+            raise AssertionError(f"ab_fused_step {name}: good {good}, {same} equal, ATE {ate}")
+
+    # profile_mapping on phase 4's first 15 frames, graphed and eager
+    pm = profile_mapping.run(dev, frames=frames[:profile_mapping.N_KF + 1])
+    for line in profile_mapping.report(pm):
+        say(f"profile_mapping: {line}")
+    pm_e = profile_mapping.run(dev, frames=frames[:profile_mapping.N_KF + 1], capture=False)
+    if not (bits_equal(torch.from_numpy(pm["trajectory"]), torch.from_numpy(pm_e["trajectory"]))
+            and pm["mapper"].map.n_pt == pm_e["mapper"].map.n_pt):
+        raise AssertionError("profile_mapping: the graphed map departs from the eager one")
+    say(f"profile_mapping: graphed map == eager map ({pm['mapper'].map.n_pt} points, "
+        f"keyframe poses bit for bit) on {smi}")
+
+    # the demo: every frame good, keyframe ATE under the floor, the
+    # artifacts written, graphed == eager keyframe trajectory
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_demo_") as out:
+        demo = demo_synthetic.run(DEMO_FRAMES, os.path.join(out, "graphed"), device=dev,
+                                  say=lambda m: say(f"demo: {m.strip()}"))
+        demo_e = demo_synthetic.run(DEMO_FRAMES, os.path.join(out, "eager"), device=dev,
+                                    capture=False)
+        sizes = {os.path.basename(f): os.path.getsize(f) for f in demo["files"]}
+    n_kf = len(demo["trajectory"])
+    say(f"demo ({DEMO_FRAMES} frames): {sum(demo['good'])}/{len(demo['good'])} good, {n_kf} "
+        f"keyframes (JAX CPU {JAX_CPU_DEMO_KF}), ATE {demo['ate']:.6f} m (floor "
+        f"{DEMO_ATE_FLOOR:.6f}, JAX CPU {JAX_CPU_DEMO_ATE:.6f}), {demo['seconds']:.3f} s; eager "
+        f"{demo_e['seconds']:.3f} s; artifacts {sizes} on {smi}")
+    if not (all(demo["good"]) and len(demo["good"]) == DEMO_FRAMES - 1
+            and demo["ate"] <= DEMO_ATE_FLOOR and all(sizes.values())):
+        raise AssertionError(f"demo: good {demo['good']}, ATE {demo['ate']}, files {sizes}")
+    if not bits_equal(torch.from_numpy(demo["trajectory"]), torch.from_numpy(demo_e["trajectory"])):
+        raise AssertionError("demo: the graphed keyframe trajectory departs from the eager one")
+
+    launches = {k: fn.launches for k, fn in wrappers.items()}
+    say(f"programs: phase 14 took {time.perf_counter() - t_phase:.3f} s; launches {launches} "
+        f"on {smi}")
+    for k in KERNEL_WRAPPERS:
+        if launches[k] <= 0:
+            raise AssertionError(f"kernel {k} never launched on the programs' path")
+    return launches
+
+
 def say_graphs(after: str, smi: str) -> None:
     """The process's CUDA graphs so far: captures, replays, the graphs
-    still alive once garbage is collected and their pools' bytes."""
+    still alive once garbage is collected and their pools' bytes; and the
+    card's memory: allocated, of it in graphs' private pools, and reserved
+    by the caching allocator."""
     from plslam_tpu_torch import graphs
 
     gc.collect()
     st = graphs.stats()
+    private = sum(seg["allocated_size"] for seg in torch.cuda.memory_snapshot()
+                  if tuple(seg.get("segment_pool_id", (0, 0))) != (0, 0))
     say(f"graphs after {after}: {st['captures']} captured, {st['replays']} replays, "
-        f"{st['live']} alive holding {st['pool_bytes'] / 2**20:.3f} MiB of pools on {smi}")
+        f"{st['live']} alive holding {st['pool_bytes'] / 2**20:.3f} MiB of pools; memory "
+        f"allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB ({private / 2**30:.3f} in "
+        f"private pools), reserved {torch.cuda.memory_reserved() / 2**30:.3f} GiB on {smi}")
 
 
 def assert_no_jax() -> None:
@@ -2651,15 +2770,18 @@ def run_phases(args, dev, smi, kind, fixture, writer, render=None, eval_render=N
     say_graphs("eval", smi)
     bench_launches, bench_lines = phase_bench(dev, smi, frames, slam_pairs, streams)
     say_graphs("bench twins", smi)
+    program_launches = phase_programs(dev, smi, frames, poses)
+    say_graphs("programs", smi)
     for k in report:
         by_thread = {"slam": slam_launches[k["name"]], "slam_endpoint": ep_launches[k["name"]],
                      "loop": loop_launches[k["name"]], "disk": disk_launches[k["name"]],
                      "eval": eval_launches[k["name"]]}
         by_path = {"vo": launches[k["name"]], **by_thread, "batch": batch_launches[k["name"]],
                    "rgbd": rgbd_launches[k["name"]], "dist": dist_launches[k["name"]],
-                   "bench": bench_launches[k["name"]]}
+                   "bench": bench_launches[k["name"]], "programs": program_launches[k["name"]]}
         k["launches"] = (by_path["vo"] + by_path["batch"] + by_path["rgbd"] + by_path["dist"]
-                         + by_path["bench"] + sum(sum(v.values()) for v in by_thread.values()))
+                         + by_path["bench"] + by_path["programs"]
+                         + sum(sum(v.values()) for v in by_thread.values()))
         k["launches_by_path"] = by_path
     assert_no_jax()
     say(f"main path: graphed {fps['graphed']:.3f}, eager {fps['eager']:.3f} frames/s (median "

@@ -88,6 +88,19 @@ def kernel_launches() -> dict[str, int]:
     return {k: fn.launches for k, fn in KERNELS.items()}
 
 
+def scaled(scale: float = 1.0) -> tuple[dict, dict]:
+    """``SCENE`` and ``WIDTHS`` with the image, its intrinsics and the
+    feature widths scaled by ``scale``: 1 is the benchmark's 752x480 with
+    1200 points and 256 line slots; the measurement programs' CPU tests
+    run at 0.25 (188x120, 300 points, 64 line slots)."""
+    if scale == 1.0:
+        return dict(SCENE), dict(WIDTHS)
+    scene = dict(SCENE, width=round(SCENE["width"] * scale),
+                 height=round(SCENE["height"] * scale),
+                 **{k: SCENE[k] * scale for k in ("fx", "fy", "cx", "cy")})
+    return scene, {k: round(v * scale) for k, v in WIDTHS.items()}
+
+
 def camera(scene: SyntheticScene) -> StereoCamera:
     return StereoCamera.create(scene.fx, scene.fy, scene.cx, scene.cy, scene.b,
                                width=scene.width, height=scene.height)

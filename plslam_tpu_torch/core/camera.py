@@ -67,3 +67,12 @@ class StereoCamera(NamedTuple):
         return torch.stack([(uv[..., 0] - self.cx) / self.fx,
                             (uv[..., 1] - self.cy) / self.fy,
                             torch.ones_like(uv[..., 0])], dim=-1)
+
+
+def euroc_default_camera() -> StereoCamera:
+    """Rectified EuRoC MAV intrinsics (values after cv2.stereoRectify of the
+    shipped euroc_params.yaml calibration; used for synthetic tests), as
+    ``plslam_tpu.core.camera.euroc_default_camera``.  The camera is Python
+    floats rounded to float32, so it takes neither a dtype nor a device."""
+    return StereoCamera.create(fx=435.2, fy=435.2, cx=367.4, cy=252.2, b=0.110074,
+                               width=752, height=480)

@@ -6,9 +6,12 @@ isGoodSolution :292 of stereoFrameHandler.cpp).
 Residuals and Jacobians of all features are computed at once and reduced
 into one weighted 8x8 Gram.  The update solves H delta = g and applies
 DT <- exp(-delta) @ DT.  The GN loop runs a fixed number of trips with a
-converged mask: once the stopping rule fires, the carry freezes, which
-gives exactly the iterates of the JAX package's early-exit while-loop,
-without a host sync inside the step.
+converged mask, without a host sync inside the step.  With
+``TrackerConfig.early_exit`` (the default) the carry freezes once the
+stopping rule fires, which gives exactly the iterates of the JAX
+package's early-exit while-loop; without it the trips run the JAX
+package's fixed-length scan: a finished trip still applies exp(-0) and
+still updates ``good``.
 """
 
 from __future__ import annotations
@@ -42,6 +45,9 @@ class TrackerConfig(NamedTuple):
     max_kf_r_dist: float = 15.0
     defer_lines_min_pts: int = 30
     line_abs_gate: float = 3.0
+    # the JAX package's GN loop form: True its lax.while_loop (a converged
+    # carry freezes), False its fixed-length lax.scan
+    early_exit: bool = True
 
 
 def _rdiv(num: float, den: torch.Tensor) -> torch.Tensor:
@@ -223,7 +229,7 @@ class GNResult(NamedTuple):
 def gauss_newton(DT0: torch.Tensor, pts: TrackedPoints, ls: TrackedLines,
                  cam: StereoCamera, cfg: TrackerConfig, max_iters: int) -> GNResult:
     """GN with the reference's stopping rules (:803-853) as a fixed-trip
-    masked loop."""
+    masked loop in the form ``cfg.early_exit`` names (module docstring)."""
     dtype, dev = DT0.dtype, DT0.device
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     DT = DT0
@@ -239,9 +245,14 @@ def gauss_newton(DT0: torch.Tensor, pts: TrackedPoints, ls: TrackedLines,
         halt = done | stop | ~ok
         step = torch.where(halt, 0.0, delta)
         small = torch.linalg.norm(step) < cfg.min_error_change
-        # a converged carry freezes: the early-exit loop's iterates
-        DT = torch.where(done, DT, lie.exp_se3(-step) @ DT)
-        good = torch.where(done, good, good & (ok | stop))
+        if cfg.early_exit:
+            # a converged carry freezes: the early-exit loop's iterates
+            DT = torch.where(done, DT, lie.exp_se3(-step) @ DT)
+            good = torch.where(done, good, good & (ok | stop))
+        else:
+            # the scan's carry: exp(-0) @ DT, and good updates on every trip
+            DT = lie.exp_se3(-step) @ DT
+            good = good & (ok | stop)
         err_prev = torch.where(done, err_prev, err)
         done = halt | small
     H, _, err_final = build_normal_equations(DT, pts, ls, cam, cfg)

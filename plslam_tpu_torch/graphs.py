@@ -293,15 +293,20 @@ def tree_pack_clone(tree):
 
 
 def tree_clone(tree):
-    """A NamedTuple tree of tensors copied leaf by leaf."""
+    """A tree of tensors (NamedTuples, tuples; None leaves) copied leaf by leaf."""
+    if tree is None:
+        return None
     if isinstance(tree, torch.Tensor):
         return tree.clone()
-    return type(tree)(*(tree_clone(x) for x in tree))
+    items = [tree_clone(x) for x in tree]
+    return type(tree)(*items) if hasattr(tree, "_fields") else type(tree)(items)
 
 
 def tree_copy_(dst, src) -> None:
-    """Copy a NamedTuple tree of tensors into ``dst``'s buffers, in place
-    (a leaf that already is its destination is skipped)."""
+    """Copy a tree of tensors into ``dst``'s buffers, in place (a leaf that
+    already is its destination is skipped)."""
+    if dst is None:
+        return
     if isinstance(dst, torch.Tensor):
         if src is not dst:
             dst.copy_(src)

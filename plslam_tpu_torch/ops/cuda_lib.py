@@ -159,6 +159,22 @@ def recording():
         _recorder.tally = None
 
 
+_observer = threading.local()
+
+
+@contextlib.contextmanager
+def observing(hook):
+    """While active on this thread, a call of a ``counted`` wrapper goes to
+    ``hook(wrapper, args, kwargs)``, which calls ``wrapper.__wrapped__``
+    itself and returns its result (``roofline.WorkCounter`` counts each
+    kernel's work by its formula this way)."""
+    _observer.hook = hook
+    try:
+        yield
+    finally:
+        _observer.hook = None
+
+
 class counted:
     """Decorator for a kernel wrapper: the wrapper calls ``count()`` where
     it launches its kernel, and the launches are counted under a lock,
@@ -173,6 +189,9 @@ class counted:
         self._by_thread: dict[str, int] = {}
 
     def __call__(self, *args, **kwargs):
+        hook = getattr(_observer, "hook", None)
+        if hook is not None:
+            return hook(self, args, kwargs)
         return self.__wrapped__(*args, **kwargs)
 
     def count(self) -> None:

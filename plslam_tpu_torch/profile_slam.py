@@ -33,6 +33,7 @@ import subprocess
 import sys
 import threading
 import time
+from typing import Callable
 
 import numpy as np
 import torch
@@ -92,13 +93,11 @@ STAGES = {"slam": ("process", "_submit", "_insert_keyframe"),
 CLASS_STAGES = {"Program": ("__call__",), "StagedProgram": ("wait", "_fill")}
 
 
-def time_stages(slam):
-    """Wrap ``STAGES`` of ``slam`` and ``CLASS_STAGES`` of ``graphs`` in
-    host timers: (the dict that fills with (thread, step) -> [seconds,
-    calls], a function that unwraps the classes)."""
-    from plslam_tpu_torch import graphs
-
-    acc = collections.defaultdict(lambda: [0.0, 0])
+def wrap_timers(targets) -> tuple[dict, Callable[[], None]]:
+    """Wrap each (object, step, key) of ``targets`` in a host timer: (the
+    dict that fills with (thread name, key) -> [seconds of each call], a
+    function that unwraps them).  A step the object lacks is skipped."""
+    acc = collections.defaultdict(list)
     wrapped = []
 
     def wrap(obj, step, key):
@@ -111,28 +110,36 @@ def time_stages(slam):
             try:
                 return fn(*a, **k)
             finally:
-                rec = acc[(threading.current_thread().name, key)]
-                rec[0] += time.perf_counter() - t
-                rec[1] += 1
+                acc[(threading.current_thread().name, key)].append(time.perf_counter() - t)
 
         setattr(obj, step, timed)
         wrapped.append((obj, step, fn))
 
-    for obj_name, steps in STAGES.items():
-        obj = slam if obj_name == "slam" else getattr(slam, obj_name)
-        for step in steps:
-            wrap(obj, step, f"{obj_name}.{step}")
-    for cls_name, steps in CLASS_STAGES.items():
-        cls = getattr(graphs, cls_name, None)
-        for step in steps if cls is not None else ():
-            wrap(cls, step, f"graphs.{cls_name}.{step}")
+    for obj, step, key in targets:
+        wrap(obj, step, key)
 
     def unwrap():
-        for obj, step, fn in wrapped:
+        for obj, step, fn in reversed(wrapped):
             if isinstance(obj, type):
                 setattr(obj, step, fn)
+            else:
+                delattr(obj, step)   # the instance attribute over the method
 
     return acc, unwrap
+
+
+def time_stages(slam):
+    """Wrap ``STAGES`` of ``slam`` and ``CLASS_STAGES`` of ``graphs`` in
+    host timers (``wrap_timers``)."""
+    from plslam_tpu_torch import graphs
+
+    targets = [(slam if obj_name == "slam" else getattr(slam, obj_name), step,
+                f"{obj_name}.{step}") for obj_name, steps in STAGES.items() for step in steps]
+    for cls_name, steps in CLASS_STAGES.items():
+        cls = getattr(graphs, cls_name, None)
+        targets += [(cls, step, f"graphs.{cls_name}.{step}")
+                    for step in (steps if cls is not None else ())]
+    return wrap_timers(targets)
 
 
 def _sync(dev) -> None:
@@ -165,8 +172,8 @@ def run_once(dev, frames: list, name: str, stages: bool = False):
     slam.finish(run_gba=False)
     if acc is not None:
         unwrap()
-        acc = {f"{th} {key}": [round(1e3 * sec / n, 3), n] for (th, key), (sec, n) in
-               sorted(acc.items())}
+        acc = {f"{th} {key}": [round(1e3 * sum(ts) / len(ts), 3), len(ts)]
+               for (th, key), ts in sorted(acc.items())}
     return fps, n_kf, acc
 
 

@@ -12,10 +12,8 @@ from plslam_tpu_torch import config as C
 
 CONFIGS = Path(__file__).resolve().parent.parent / "configs"
 # JAX-only fields: the Pallas kernel switches (the port picks a kernel or
-# its plain version from the tensor's device) and the GN scan/while switch
-# (the port's tracker always gives the early-exit iterates)
-JAX_ONLY = {"frontend": {"use_pallas_fast", "use_pallas_patches"},
-            "tracker": {"early_exit"}}
+# its plain version from the tensor's device)
+JAX_ONLY = {"frontend": {"use_pallas_fast", "use_pallas_patches"}}
 
 
 def _fields(obj) -> dict:

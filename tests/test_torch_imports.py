@@ -24,6 +24,9 @@ EVAL_MODULES = ("line_match_quality", "compare_line_modes", "e2e_robust", "endpo
                 "loop_stress", "train_vocabulary")
 # the benchmark twins: python -m plslam_tpu_torch.<name>
 BENCH_MODULES = ("bench", "bench_slam", "bench_batch_vo", "bench_dist_gba")
+# the measurement programs and the demo that run on the card
+PROGRAM_MODULES = ("roofline", "profile_detect", "ab_fused_step", "profile_mapping",
+                   "demo_synthetic")
 
 PROBE = r"""
 import importlib, importlib.util, json, pkgutil, sys
@@ -49,7 +52,8 @@ def test_port_imports_no_jax_package():
                 "plslam_tpu_torch.batch_vo", "plslam_tpu_torch.frontend.rgbd",
                 "plslam_tpu_torch.core.segment", "plslam_tpu_torch.io.ring_map",
                 "plslam_tpu_torch.io.ring_world",
-                *(f"plslam_tpu_torch.{m}" for m in EVAL_MODULES + BENCH_MODULES),
+                *(f"plslam_tpu_torch.{m}" for m in EVAL_MODULES + BENCH_MODULES
+                  + PROGRAM_MODULES), "plslam_tpu_torch.profile_map_host",
                 "plslam_tpu_torch.evaluate_ate", "plslam_tpu_torch.viz",
                 *(f"plslam_tpu_torch.parallel.{m}" for m in
                   ("mesh", "launch", "dist_ba", "dist_gba", "dist_match", "multihost"))):
@@ -122,6 +126,21 @@ def test_benchmark_twins_need_the_card(name):
     mod = importlib.import_module(f"plslam_tpu_torch.{name}")
     run = mod.bench_slam if name == "bench_slam" else mod.run
     assert inspect.signature(run).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(SystemExit) as e:
+        mod.main([])
+    assert e.value.code not in (0, None)
+
+
+@pytest.mark.parametrize("name", PROGRAM_MODULES)
+def test_measurement_programs_need_the_card(name):
+    """Each defaults to the card: without CUDA and without ``--device cpu``
+    it exits non-zero before any work."""
+    import importlib
+
+    mod = importlib.import_module(f"plslam_tpu_torch.{name}")
+    assert inspect.signature(mod.run).parameters["device"].default == "cuda"
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit) as e:
