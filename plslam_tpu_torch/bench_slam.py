@@ -9,8 +9,10 @@ Prints bench_slam.py's two JSON lines, ``full_slam_frames_per_s`` and
 standard error on ``#`` lines: the card's name and power limit, the
 keyframes mapped, and the program captures (association and local-BA
 shape buckets, ``graphs.ProgramCache``) that landed inside the timed
-window.  Those captures stay in the window, as the JAX program's compiles
-of new buckets stay in its own.
+window, with the allocator cache releases made before them
+(``graphs.stats()``: none while the card has room).  Those captures stay
+in the window, as the JAX program's compiles of new buckets stay in its
+own.
 
 The LM problem is tests/test_ba.make_problem(K=8, P=512, L=64) cast to
 f32: ``make_ba_problem_np`` draws its numbers and ``local_ba_problem``
@@ -113,8 +115,9 @@ def bench_slam(frames=None, *, scene: dict = SCENE, config: dict = CONFIG,
                n_frames: int = N_FRAMES, device="cuda") -> dict:
     """bench_slam.py's ``bench_slam`` on ``frames`` (rendered from ``scene``
     when None; ``n_warmup + n_frames`` pairs).  Returns {"fps", "n_kf",
-    "captures": program captures per kind inside the timed window, "good":
-    every frame's good flag}."""
+    "captures": program captures per kind inside the timed window,
+    "releases": the allocator cache releases before them, "good": every
+    frame's good flag}."""
     dev = torch.device(device)
     if frames is None:
         frames = render(scene, n_warmup + n_frames, dev)
@@ -125,7 +128,7 @@ def bench_slam(frames=None, *, scene: dict = SCENE, config: dict = CONFIG,
     for i in range(n_warmup):
         slam.process(*frames[i], timestamp=0.05 * i)
     slam.wait_until_idle()
-    before = _captures(slam)
+    before, released = _captures(slam), graphs.stats()["releases"]
     t0 = time.perf_counter()
     for i in range(n_warmup, n_warmup + n_frames):
         slam.process(*frames[i], timestamp=0.05 * i)
@@ -133,8 +136,9 @@ def bench_slam(frames=None, *, scene: dict = SCENE, config: dict = CONFIG,
     dt = time.perf_counter() - t0
     n_kf = len(slam.mapper.map.keyframes)
     captures = {k: n - before[k] for k, n in _captures(slam).items() if n - before[k]}
+    released = graphs.stats()["releases"] - released
     slam.finish(run_gba=False)
-    return {"fps": n_frames / dt, "n_kf": n_kf, "captures": captures,
+    return {"fps": n_frames / dt, "n_kf": n_kf, "captures": captures, "releases": released,
             "good": [lg.good for lg in slam.logs]}
 
 
@@ -180,7 +184,8 @@ def main(argv=None) -> int:
     b = bench_ba_iters(device=dev)
     for line in json_lines(s["fps"], b["iters_per_s"]):
         print(json.dumps(line), flush=True)
-    say(f"program captures inside the timed window: {s['captures'] or 'none'}")
+    say(f"program captures inside the timed window: {s['captures'] or 'none'}; allocator "
+        f"cache releases before them: {s['releases']}")
     say(f"LM cost {b['cost0']:.6g} -> {b['cost']:.6g} after {LM_ITERS} trips")
     print(f"# keyframes mapped during bench: {s['n_kf']}", file=sys.stderr, flush=True)
     return 0

@@ -25,7 +25,19 @@ make that one copy).
   collected mid-capture) invalidates the capture.  No collection runs
   before it: with the collector off none can start mid-capture, and a
   full pass over a SLAM process's objects takes a few hundred ms.
-- A capture or replay error raises.  Nothing falls back to eager.
+- The allocator frees no cached block while a capture is underway, and a
+  capture's private pool cannot reuse the blocks the default pool keeps
+  cached: after large eager work the card can be nearly full of free
+  cached blocks, and the capture runs out of memory.  So before
+  ``capture_begin`` the last warm-up's peak (``need``) is held against the
+  card's free memory (``must_release``); where it does not fit and the
+  cached blocks would make room, the device is synchronized and the
+  allocator's cache emptied (``releases``, ``released_bytes`` in
+  ``stats()``).  That covers the pools of dropped graphs too, which stay
+  cached until then.  Under the capture lock no other thread captures, and
+  ``empty_cache`` asserts only mid-capture.
+- A capture or replay error raises.  Nothing falls back to eager: a
+  capture that still does not fit raises ``torch.OutOfMemoryError``.
 - Kernel launch counts stay true: the wrappers' launches during the
   capture are recorded (``cuda_lib.recording``), and each replay adds them
   again on the replaying thread.
@@ -62,11 +74,44 @@ from .ops import cuda_lib
 
 WARMUP = 2
 CAPTURE_MODE = "thread_local"
+# What a capture's private pool holds beyond its warm-up's peak: the pool
+# rounds each request up to the allocator's block and segment sizes and
+# keeps the blocks the capture freed for the capture alone.  The batched
+# VO step's pools at B = 1-16 are 1.53-1.58 times that peak on an H100
+# (chip_smoke phase 10 prints both); small programs round up to whole
+# 2 MiB and 20 MiB segments.
+CAPTURE_MARGIN = 1.75
+CAPTURE_SLACK = 256 << 20
 
 _lock = threading.Lock()
 _capture_lock = threading.Lock()
-_counts = {"captures": 0, "replays": 0}
+_counts = {"captures": 0, "replays": 0, "releases": 0, "released_bytes": 0}
 _live: "weakref.WeakSet[Program]" = weakref.WeakSet()
+
+
+def must_release(need: int, free: int, reserved: int, allocated: int) -> bool:
+    """Whether a capture whose warm-up peaked ``need`` bytes above what was
+    allocated before it should first have the allocator give back its
+    cached blocks: yes when the card's ``free`` bytes do not cover the need
+    with its margin and the cached unused bytes (``reserved - allocated``)
+    would.  When even they would not, releasing cannot make the capture
+    fit, and it raises out of memory as it would have."""
+    want = need * CAPTURE_MARGIN + CAPTURE_SLACK
+    return free < want <= free + reserved - allocated
+
+
+def _make_room(device: torch.device, need: int) -> None:
+    """Empty the allocator's cache before a capture that ``must_release``
+    (under the capture lock: no other thread is capturing)."""
+    free, _ = torch.cuda.mem_get_info(device)
+    reserved = torch.cuda.memory_reserved(device)
+    if not must_release(need, free, reserved, torch.cuda.memory_allocated(device)):
+        return
+    torch.cuda.synchronize(device)
+    torch.cuda.empty_cache()
+    with _lock:
+        _counts["releases"] += 1
+        _counts["released_bytes"] += reserved - torch.cuda.memory_reserved(device)
 
 
 class Program:
@@ -80,6 +125,7 @@ class Program:
         self.outputs = None
         self.replays = 0
         self.warmups = 0      # calls of ``fn`` the capture made before it
+        self.need = 0         # bytes the last warm-up allocated at its peak
         self._tally: dict = {}
         if self.device.type == "cuda" and capture:
             self._capture()
@@ -102,8 +148,15 @@ class Program:
         side.wait_stream(current)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.stream(side):
-            for _ in range(WARMUP):
+            for _ in range(WARMUP - 1):
                 self.fn()
+            # the last warm-up's peak is what the capture will allocate
+            # (another thread's allocations meanwhile count in it too)
+            before = torch.cuda.memory_allocated(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
+            self.fn()
+            self.need = torch.cuda.max_memory_allocated(self.device) - before
+            _make_room(self.device, self.need)
             # a graph destroyed on this thread mid-capture (the cyclic
             # collector freeing an old tracker object) invalidates the capture
             collecting = gc.isenabled()
@@ -152,7 +205,9 @@ class Program:
 
     def release(self) -> None:
         """Drop the graph and its outputs, out of any other thread's
-        capture (a graph destroyed mid-capture can invalidate it)."""
+        capture (a graph destroyed mid-capture can invalidate it).  Its
+        pool stays cached until a capture that needs the room empties the
+        allocator's cache."""
         with _capture_lock:
             self.graph = self.outputs = None
 
@@ -214,7 +269,9 @@ class Trips:
 
 
 def stats() -> dict:
-    """Captures and replays since start-up, the live graphs and their pools' bytes."""
+    """Captures and replays since start-up, the allocator's cache releases
+    before a capture and the bytes they gave back, the live graphs and
+    their pools' bytes."""
     with _lock:
         counts, live = dict(_counts), list(_live)
     pools = {tuple(p.graph.pool()) for p in live}

@@ -1,7 +1,9 @@
 """The benchmark twins at full size on the card: each
 ``python -m plslam_tpu_torch.<twin>`` with no arguments exits 0 and prints
 its JAX program's JSON lines (the metric names, every frame of bench.py's
-best window good), with the card's name and power limit on standard error.
+best window good; no allocator cache release before bench_slam's captures
+in its timed window of a fresh process), with the card's name and power
+limit on standard error.
 
 Marked ``gpu``; each test skips when no CUDA device is present.  On a
 machine with one (``--noconftest``: its tests/conftest.py imports jax):
@@ -38,6 +40,8 @@ def test_twin_main_on_the_card(twin):
     assert name in proc.stderr and " W" in proc.stderr
     if twin == "bench":
         assert "good_frames=20/20" in proc.stderr
+    if twin == "bench_slam":
+        assert "allocator cache releases before them: 0" in proc.stderr
     if twin == "bench_dist_gba":
         w = torch.cuda.device_count()
         assert {"single", f"mesh{w}", f"mesh1x{w}"} <= set(lines[0])

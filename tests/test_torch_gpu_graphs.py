@@ -4,8 +4,9 @@ per-keyframe programs (the fused association, KF2KF, Map2KF, the
 refinement), the loop closer's BoW transform and verification pose solve,
 and the programs captured one trip at a time (the chunked GBA on a
 problem of 3 chunks and on phase 5's SLAM map, the PGO on a ring
-closure's pose graph) bit for bit, the launch accounting of replays, and
-a capture that fails raising instead of running eagerly.
+closure's pose graph) bit for bit, the launch accounting of replays, a
+capture that fails raising instead of running eagerly, and a capture
+after the caching allocator's cache has filled the card.
 
 Marked ``gpu``; each test skips when no CUDA device is present.  On a
 machine with one (``--noconftest``: its tests/conftest.py imports jax):
@@ -14,6 +15,7 @@ machine with one (``--noconftest``: its tests/conftest.py imports jax):
 
 import copy
 import importlib.util
+import json
 import os
 import subprocess
 import sys
@@ -325,3 +327,71 @@ def test_a_capture_that_syncs_raises(dev):
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("raised 0"), proc.stdout
+
+
+# A fresh process: a graph whose body allocates 4 GiB is captured and
+# dropped, then 8 GiB and 1 GiB blocks are allocated until the card has
+# 12-13 GiB free and freed again, so the allocator keeps them cached.  A
+# program whose body allocates 8 GiB (one int64 temporary) must then
+# capture.  Its warm-ups run on a side stream, whose allocations reuse no
+# block cached on another stream: the first takes 8 GiB of the free
+# memory (a warm-up that found no room would have the allocator free the
+# cache itself) and leaves 4-5 GiB free.  The allocator frees no cached
+# block while a capture is underway, so the capture's 8 GiB fit only if
+# the cache was emptied before it.  Prints one JSON line.
+FULL_CARD = """
+import json
+import torch
+from plslam_tpu_torch import graphs
+
+GiB = 1 << 30
+dev = torch.device("cuda")
+g = torch.Generator(device=dev).manual_seed(0)
+y = torch.randint(0, 1000, (GiB // 2,), device=dev, dtype=torch.int64, generator=g)
+dropped = graphs.Program(lambda: (y * 2).sum(), dev)
+dead_pool = tuple(dropped.graph.pool())
+dropped.release()
+del dropped
+blocks = []
+for size, keep in ((8 * GiB, 20 * GiB), (GiB, 13 * GiB)):
+    while torch.cuda.mem_get_info(dev)[0] >= keep:
+        blocks.append(torch.empty(size, dtype=torch.uint8, device=dev))
+cached = sum(b.numel() for b in blocks)
+del blocks
+
+
+def body():
+    return torch.cat([y, y]).sum()
+
+
+free = torch.cuda.mem_get_info(dev)[0]
+try:
+    prog = graphs.Program(body, dev)
+except torch.OutOfMemoryError as e:
+    print(json.dumps({"oom": str(e).splitlines()[0], "free": free}))
+    raise SystemExit(0)
+out = prog().clone()
+st = graphs.stats()
+pools = {tuple(s.get("segment_pool_id", ())) for s in torch.cuda.memory_snapshot()}
+print(json.dumps({"free": free, "need": prog.need, "cached": cached, "captured": prog.captured,
+                  "equal": bool(torch.equal(out, body())), "replays": prog.replays,
+                  "releases": st["releases"], "released_bytes": st["released_bytes"],
+                  "dead_pool_held": dead_pool in pools}))
+"""
+
+
+def test_a_capture_after_the_cache_fills_the_card(dev):
+    """The fault of a long process: the caching allocator holds the card.
+    The program captures (the cache emptied once, before the capture, with
+    the dropped graph's pool in it), and its replay equals the body run
+    eagerly bit for bit.  In a fresh process, as the test above."""
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    proc = subprocess.run([sys.executable, "-c", FULL_CARD], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    r = json.loads(proc.stdout.splitlines()[-1])
+    assert "oom" not in r, r
+    assert r["free"] < 13 << 30 and r["need"] >= 8 << 30, r
+    assert r["captured"] and r["equal"] and r["replays"] == 1, r
+    assert r["releases"] == 1 and r["released_bytes"] >= r["cached"], r
+    assert not r["dead_pool_held"], r
