@@ -39,6 +39,7 @@ from ..frontend.features import (LineSet, PointSet, StereoFeatures, TrackedLines
                                  TrackedPoints)
 from ..frontend.tracker import TrackerConfig, optimize_pose
 from ..ops import matching as M
+from ..utils.profiling import span, timed
 from ..convert import ba_problem_from_numpy
 from . import ba as ba_mod
 
@@ -1027,18 +1028,22 @@ class MapHandler:
             kf.T_vo = pose_vo
             self.map.keyframes.append(kf)
             self.map.expand_graphs()
-            self._match_kf2kf(kf)
-            self._refine_kf_pose(kf)
-            self._match_map2kf(kf)
+            with span("mapper.assoc"):
+                self._match_kf2kf(kf)
+                self._refine_kf_pose(kf)
+                self._match_map2kf(kf)
         else:
             kf = self._associate_and_insert(pose, feats)
-        self._spawn_landmarks(kf)  # leftovers become new landmarks
+        with span("mapper.spawn"):
+            self._spawn_landmarks(kf)  # leftovers become new landmarks
         if run_ba:
             self.local_bundle_adjustment(defer=defer_ba)
-        self.cull_landmarks()
+        with span("mapper.cull"):
+            self.cull_landmarks()
         if (self.cfg.desc_refresh_kfs > 0 and kf.id > 0
                 and kf.id % self.cfg.desc_refresh_kfs == 0):
-            self.refresh_landmark_descriptors()
+            with span("mapper.refresh"):
+                self.refresh_landmark_descriptors()
         if self.cfg.cull_kf_every > 0 and kf.id % self.cfg.cull_kf_every == 0:
             self.flush_ba()
             self.cull_redundant_keyframes(self.cfg.max_common_fts_kf)
@@ -1069,39 +1074,40 @@ class MapHandler:
         mp = self.map
         cfg = self.cfg
         prev = mp.keyframes[-1]
-        pose_vo = np.asarray(pose, np.float64)
-        # provisional chain if a deferred BA is in flight; re-chained below
-        rel = np.linalg.inv(getattr(prev, "T_vo", prev.T_w_k)) @ pose_vo
-        pose = prev.T_w_k @ rel
-        T_c_w_new = np.linalg.inv(pose)
-        Tm = np.stack([T_c_w_new @ prev.T_w_k, T_c_w_new,
-                       prev.T_w_k]).astype(np.float32)
+        with span("mapper.assoc"):
+            pose_vo = np.asarray(pose, np.float64)
+            # provisional chain if a deferred BA is in flight; re-chained below
+            rel = np.linalg.inv(getattr(prev, "T_vo", prev.T_w_k)) @ pose_vo
+            pose = prev.T_w_k @ rel
+            T_c_w_new = np.linalg.inv(pose)
+            Tm = np.stack([T_c_w_new @ prev.T_w_k, T_c_w_new,
+                           prev.T_w_k]).astype(np.float32)
 
-        local_kf = mp.local_kf_set()
-        cand = np.where(mp.pt_valid
-                        & self._local_landmark_mask(mp.pobs, mp.n_pt, local_kf))[0]
-        if cfg.use_lines:
-            cand_l = np.where(mp.ls_valid
-                              & self._local_landmark_mask(mp.lobs, mp.n_ls, local_kf))[0]
-        else:
-            cand_l = np.zeros(0, np.int64)
-        nb = _pad_bucket(len(cand))
-        nbl = _pad_bucket(len(cand_l), lo=64)
-        cpack, dpack, cval = self._stage_candidates(cand, cand_l, nb, nbl)
-        # candidate -> prev-KF feature index, so the association can skip
-        # candidates that KF2KF just re-observed
-        pf = np.full(nb + nbl, -1, np.int64)
-        w = prev.pt_lm >= 0
-        inv = np.full(mp.n_pt, -1, np.int64)
-        inv[prev.pt_lm[w]] = np.where(w)[0]
-        pf[:len(cand)] = inv[cand]
-        if cfg.use_lines and len(cand_l):
-            wl = prev.ls_lm >= 0
-            inv_l = np.full(mp.n_ls, -1, np.int64)
-            inv_l[prev.ls_lm[wl]] = np.where(wl)[0]
-            pf[nb:nb + len(cand_l)] = inv_l[cand_l]
+            local_kf = mp.local_kf_set()
+            cand = np.where(mp.pt_valid
+                            & self._local_landmark_mask(mp.pobs, mp.n_pt, local_kf))[0]
+            if cfg.use_lines:
+                cand_l = np.where(mp.ls_valid
+                                  & self._local_landmark_mask(mp.lobs, mp.n_ls, local_kf))[0]
+            else:
+                cand_l = np.zeros(0, np.int64)
+            nb = _pad_bucket(len(cand))
+            nbl = _pad_bucket(len(cand_l), lo=64)
+            cpack, dpack, cval = self._stage_candidates(cand, cand_l, nb, nbl)
+            # candidate -> prev-KF feature index, so the association can skip
+            # candidates that KF2KF just re-observed
+            pf = np.full(nb + nbl, -1, np.int64)
+            w = prev.pt_lm >= 0
+            inv = np.full(mp.n_pt, -1, np.int64)
+            inv[prev.pt_lm[w]] = np.where(w)[0]
+            pf[:len(cand)] = inv[cand]
+            if cfg.use_lines and len(cand_l):
+                wl = prev.ls_lm >= 0
+                inv_l = np.full(mp.n_ls, -1, np.int64)
+                inv_l[prev.ls_lm[wl]] = np.where(wl)[0]
+                pf[nb:nb + len(cand_l)] = inv_l[cand_l]
 
-        out = self._assoc(prev, feats, Tm, cpack, dpack, cval, pf, nb, nbl)
+            out = self._assoc(prev, feats, Tm, cpack, dpack, cval, pf, nb, nbl)
         # one copy with any deferred local-BA result
         buf = self._fetch_with_pending(out)
         n, nl = len(prev.pt_valid), len(prev.ls_valid)
@@ -1120,12 +1126,14 @@ class MapHandler:
         mp.keyframes.append(kf)
         mp.expand_graphs()
 
-        self._apply_kf2kf_points(kf, prev, kf_buf[:n].astype(np.int64),
-                                 kf_buf[n: 2 * n] > 0.5)
-        if cfg.use_lines:
-            self._apply_kf2kf_lines(kf, prev, kf_buf[2 * n: 2 * n + nl].astype(np.int64),
-                                    kf_buf[2 * n + nl:] > 0.5)
-        self._apply_map2kf(kf, cand, cand_l, m2_buf, nb, nbl)
+        with span("mapper.apply"):
+            self._apply_kf2kf_points(kf, prev, kf_buf[:n].astype(np.int64),
+                                     kf_buf[n: 2 * n] > 0.5)
+            if cfg.use_lines:
+                self._apply_kf2kf_lines(kf, prev,
+                                        kf_buf[2 * n: 2 * n + nl].astype(np.int64),
+                                        kf_buf[2 * n + nl:] > 0.5)
+            self._apply_map2kf(kf, cand, cand_l, m2_buf, nb, nbl)
         return kf
 
     # -- association (split form) -----------------------------------------
@@ -1634,8 +1642,10 @@ class MapHandler:
         if len(self.map.keyframes) < 2:
             return None
         self.flush_ba()  # at most one solve in flight
-        prob, meta = self.build_local_ba()
-        out, lay = self._solve_local(prob, meta)
+        with span("mapper.lba.build"):
+            prob, meta = self.build_local_ba()
+        with span("mapper.lba.solve"):
+            out, lay = self._solve_local(prob, meta)
         if defer:
             done = None
             if self.device.type == "cuda":
@@ -1645,7 +1655,10 @@ class MapHandler:
             with self._ba_lock:
                 self._ba_pending = (out, lay, meta, done)
             return None
-        return self._finish_local_ba(out.cpu().numpy(), lay, meta)
+        with timed("mapper.fetch.wait"):
+            host = out.cpu().numpy()
+        with span("mapper.lba.writeback"):
+            return self._finish_local_ba(host, lay, meta)
 
     def _pose_jump(self, local_ids, T_c_w_new) -> float:
         """Largest pose-translation change a BA write-back would apply."""
@@ -1686,7 +1699,10 @@ class MapHandler:
         if pending is not None:
             out, lay, meta, done = pending
             self._after(done)
-            self._finish_local_ba(out.cpu().numpy(), lay, meta)
+            with timed("mapper.fetch.wait"):
+                host = out.cpu().numpy()
+            with span("mapper.lba.writeback"):
+                self._finish_local_ba(host, lay, meta)
 
     def _after(self, done) -> None:
         """Order this thread's stream after the event ``done`` (None: no
@@ -1700,11 +1716,15 @@ class MapHandler:
         with self._ba_lock:
             pending, self._ba_pending = self._ba_pending, None
         if pending is None:
-            return out.cpu().numpy()
+            with timed("mapper.fetch.wait"):
+                return out.cpu().numpy()
         pout, lay, meta, done = pending
         self._after(done)
-        both = torch.cat([pout, out]).cpu().numpy()
-        self._finish_local_ba(both[: len(pout)], lay, meta)
+        both = torch.cat([pout, out])
+        with timed("mapper.fetch.wait"):
+            both = both.cpu().numpy()
+        with span("mapper.lba.writeback"):
+            self._finish_local_ba(both[: len(pout)], lay, meta)
         return both[len(pout):]
 
     def _gba_chunk_caps(self):

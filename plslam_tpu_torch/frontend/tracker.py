@@ -11,7 +11,10 @@ converged mask, without a host sync inside the step.  With
 stopping rule fires, which gives exactly the iterates of the JAX
 package's early-exit while-loop; without it the trips run the JAX
 package's fixed-length scan: a finished trip still applies exp(-0) and
-still updates ``good``.
+still updates ``good``.  In both forms a trip is used when it enters with
+the carry not yet done; ``optimize_pose`` hands on each trip's flag of its
+two solves (``PoseEstimate.done_in``), and the VO step counts them
+(``trips_used``).
 """
 
 from __future__ import annotations
@@ -224,6 +227,7 @@ class GNResult(NamedTuple):
     cov: torch.Tensor
     err: torch.Tensor
     good: torch.Tensor
+    done_in: tuple = ()     # each trip's done flag at its entry (0-d bools)
 
 
 def gauss_newton(DT0: torch.Tensor, pts: TrackedPoints, ls: TrackedLines,
@@ -236,7 +240,9 @@ def gauss_newton(DT0: torch.Tensor, pts: TrackedPoints, ls: TrackedLines,
     err_prev = torch.full((), 9.9e8, dtype=dtype, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     good = torch.ones((), dtype=torch.bool, device=dev)
+    done_in = []
     for _ in range(max_iters):
+        done_in.append(done)
         H, g, err = build_normal_equations(DT, pts, ls, cam, cfg)
         stop = (torch.abs(err - err_prev) < cfg.min_error_change) | (err < cfg.min_error)
         L, chol_ok = _cholesky(H)
@@ -257,7 +263,14 @@ def gauss_newton(DT0: torch.Tensor, pts: TrackedPoints, ls: TrackedLines,
         done = halt | small
     H, _, err_final = build_normal_equations(DT, pts, ls, cam, cfg)
     cov = torch.where(good, _solve_spd(H, eye6), eye6)
-    return GNResult(DT=DT, cov=cov, err=torch.where(good, err_final, -1.0), good=good)
+    return GNResult(DT=DT, cov=cov, err=torch.where(good, err_final, -1.0), good=good,
+                    done_in=tuple(done_in))
+
+
+def trips_used(done_in: tuple) -> torch.Tensor:
+    """f32: the trips that entered not done, in one stack and one sum, not a
+    kernel a trip."""
+    return len(done_in) - torch.stack(done_in).sum(dtype=torch.float32)
 
 
 def remove_outliers(DT: torch.Tensor, pts: TrackedPoints, ls: TrackedLines,
@@ -299,6 +312,7 @@ class PoseEstimate(NamedTuple):
     err: torch.Tensor
     n_inliers: torch.Tensor
     good: torch.Tensor
+    done_in: tuple              # both solves' ``GNResult.done_in``, in trip order
 
 
 def _count(m: torch.Tensor) -> torch.Tensor:
@@ -339,5 +353,6 @@ def optimize_pose(pts: TrackedPoints, ls: TrackedLines, cam: StereoCamera,
     est = PoseEstimate(DT=torch.where(final_good, DT, I4),
                        cov=torch.where(final_good, cov, Z6),
                        err=torch.where(final_good, err, -1.0),
-                       n_inliers=n1, good=final_good)
+                       n_inliers=n1, good=final_good,
+                       done_in=first.done_in + refined.done_in)
     return est, pts2, ls2

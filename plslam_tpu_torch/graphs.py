@@ -41,6 +41,9 @@ make that one copy).
 - Kernel launch counts stay true: the wrappers' launches during the
   capture are recorded (``cuda_lib.recording``), and each replay adds them
   again on the replaying thread.
+- The capture is timed (``graphs.capture``), and so is a staged
+  program's wait for its last replay (``graphs.staged.wait``); the cache
+  release is a span (``graphs.release``): ``utils/profiling``.
 - On a CPU device, or with ``capture=False`` (the counterpart of
   ``jax.disable_jit``), a call runs the function itself, so the CPU tests
   exercise the code the graph captures.
@@ -71,6 +74,7 @@ import numpy as np
 import torch
 
 from .ops import cuda_lib
+from .utils.profiling import span, timed
 
 WARMUP = 2
 CAPTURE_MODE = "thread_local"
@@ -107,8 +111,9 @@ def _make_room(device: torch.device, need: int) -> None:
     reserved = torch.cuda.memory_reserved(device)
     if not must_release(need, free, reserved, torch.cuda.memory_allocated(device)):
         return
-    torch.cuda.synchronize(device)
-    torch.cuda.empty_cache()
+    with span("graphs.release"):
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
     with _lock:
         _counts["releases"] += 1
         _counts["released_bytes"] += reserved - torch.cuda.memory_reserved(device)
@@ -135,9 +140,10 @@ class Program:
         return self.graph is not None
 
     def _capture(self) -> None:
-        cuda_lib.load()  # the kernel library is built and loaded before any capture
-        with _capture_lock:
-            self._capture_locked()
+        with timed("graphs.capture"):
+            cuda_lib.load()  # the kernel library is built and loaded before any capture
+            with _capture_lock:
+                self._capture_locked()
         with _lock:
             _counts["captures"] += 1
             _live.add(self)
@@ -268,13 +274,23 @@ class Trips:
         self.program = None
 
 
+def captures() -> int:
+    """Captures since start-up: ``stats()["captures"]`` without the
+    allocator's snapshot that ``stats`` takes while a graph is held."""
+    with _lock:
+        return _counts["captures"]
+
+
 def stats() -> dict:
     """Captures and replays since start-up, the allocator's cache releases
     before a capture and the bytes they gave back, the live graphs and
-    their pools' bytes."""
+    their pools' bytes (a released program holds no graph; the allocator's
+    snapshot is taken only when a graph is held)."""
     with _lock:
-        counts, live = dict(_counts), list(_live)
-    pools = {tuple(p.graph.pool()) for p in live}
+        live = [p.graph for p in _live]
+        counts = dict(_counts)
+    live = [g for g in live if g is not None]
+    pools = {tuple(g.pool()) for g in live}
     pool_bytes = 0
     if pools:
         pool_bytes = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
@@ -451,7 +467,8 @@ class StagedProgram:
     def wait(self) -> None:
         """Block until the last replay has run."""
         if self._done is not None:
-            self._done.synchronize()
+            with timed("graphs.staged.wait"):
+                self._done.synchronize()
 
     def __call__(self, arrays: dict, trees: dict | None = None) -> torch.Tensor:
         self.wait()  # the staging buffers are the last replay's upload source

@@ -9,9 +9,10 @@ graphed ``MapHandler`` at bench_slam.py's map caps, through the
 production flow that ``add_keyframe`` runs without the refinement: the
 fused association with the deferred local BA's flush in its one fetch,
 the new landmarks, the local BA's assembly and dispatch (deferred), the
-culling; then the final flush.  Each stage is timed on the host clock by
-``profile_slam.wrap_timers`` (the timer of ``profile_slam --stages``), the
-fetch inside the association apart.  Prints per stage the mean, median
+culling; then the final flush.  Each stage is a ``utils/profiling.timed``
+block around its call, and the fetch inside the association is the
+mapper's own ``mapper.fetch.wait``; a keyframe's time in each is the
+difference of the thread's counters over it.  Prints per stage the mean, median
 and max ms over the keyframes after the first 4, the total per keyframe
 with its keyframes/s, and the map's size.  ``--device cpu`` runs the
 plain kernels; ``--scale`` scales the image and the feature widths (the
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import argparse
 import sys
+import threading
 
 import numpy as np
 import torch
@@ -31,18 +33,26 @@ from .backend.mapping import MapConfig, MapHandler
 from .bench import camera, card, resolve_device, scaled
 from .config import PLSLAMConfig
 from .io.synthetic import SyntheticScene, circular_trajectory
-from .profile_slam import wrap_timers
+from .utils.profiling import counters, per_call_ms, timed
 from .vo import VisualOdometry
 
 N_KF = 14
 WARM = 4
 MAP_CAPS = dict(local_ba_kf=8, ba_points=2048, ba_lines=256, ba_pobs=8192, ba_lobs=2048)
-# (MapHandler step, the row it times), in add_keyframe's order
-STEPS = (("_associate_and_insert", "assoc+flushBA (1 fetch)"),
-         ("_fetch_with_pending", "  of which: combined fetch"),
-         ("_spawn_landmarks", "spawn_landmarks(host)"),
-         ("local_bundle_adjustment", "ba_assemble+dispatch"),
-         ("cull_landmarks", "cull(host)"))
+# (counter, the row it times), in add_keyframe's order
+STEPS = (("profile_mapping.assoc", "assoc+flushBA (1 fetch)"),
+         ("mapper.fetch.wait", "  of which: combined fetch"),
+         ("profile_mapping.spawn", "spawn_landmarks(host)"),
+         ("profile_mapping.lba", "ba_assemble+dispatch"),
+         ("profile_mapping.cull", "cull(host)"),
+         ("profile_mapping.flush", "final ba flush"))
+
+
+def _seconds(before: dict, after: dict) -> dict:
+    """Seconds this thread spent in each ``timed`` block between two
+    ``counters()`` snapshots."""
+    rows = per_call_ms(before, after).get(threading.current_thread().name, {})
+    return {name: ms * n / 1e3 for name, (ms, n) in rows.items()}
 
 
 def run(device="cuda", *, frames=None, scale: float = 1.0, n_kf: int = N_KF, warm: int = WARM,
@@ -66,29 +76,31 @@ def run(device="cuda", *, frames=None, scale: float = 1.0, n_kf: int = N_KF, war
                   for T in poses]
     mapper.initialize(np.eye(4), vo.initialize(*frames[0]))
 
-    acc, unwrap = wrap_timers([(mapper, step, row) for step, row in STEPS])
-    try:
-        for i in range(1, n_kf + 1):
-            vo.process(*frames[i])
-            feats = vo.current_features
-            vo.mark_keyframe()
-            # the production (fused + deferred) flow: one combined fetch for
-            # the pending BA of the previous keyframe, the association and
-            # the packed keyframe features, then one deferred BA dispatch
+    stages = {row: [] for _, row in STEPS}
+    for i in range(1, n_kf + 1):
+        vo.process(*frames[i])
+        feats = vo.current_features
+        vo.mark_keyframe()
+        # the production (fused + deferred) flow: one combined fetch for
+        # the pending BA of the previous keyframe, the association and
+        # the packed keyframe features, then one deferred BA dispatch
+        before = counters()
+        with timed("profile_mapping.assoc"):
             kf = mapper._associate_and_insert(poses[i], feats)
+        with timed("profile_mapping.spawn"):
             mapper._spawn_landmarks(kf)
+        with timed("profile_mapping.lba"):
             mapper.local_bundle_adjustment(defer=True)
+        with timed("profile_mapping.cull"):
             mapper.cull_landmarks()
-    finally:
-        unwrap()
-    final, unwrap = wrap_timers([(mapper, "flush_ba", "final ba flush")])
-    try:
+        took = _seconds(before, counters())
+        for name, row in STEPS[:-1]:
+            stages[row].append(took.get(name, 0.0))
+    before = counters()
+    with timed("profile_mapping.flush"):
         mapper.flush_ba()
-    finally:
-        unwrap()
-    stages = {row: [t for (_, key), ts in acc.items() if key == row for t in ts]
-              for _, row in STEPS}
-    stages["final ba flush"] = [t for ts in final.values() for t in ts]
+    name, row = STEPS[-1]
+    stages[row].append(_seconds(before, counters()).get(name, 0.0))
     return {"stages": stages, "warm": warm, "mapper": mapper,
             "trajectory": np.stack(mapper.keyframe_trajectory())}
 

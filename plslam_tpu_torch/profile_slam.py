@@ -17,8 +17,11 @@ and power limit.
 interpreter's thread switch interval, 0.005 s by default): how long the
 tracker can wait for the interpreter lock while the mapping thread runs
 Python.  ``--stages`` adds, per thread, the host ms per call and the
-calls of PLSLAM's, the tracker's and the mapper's steps in the timed
-frames (``STAGES``; nested steps count inside their callers).  It imports
+calls of every ``timed`` block of the program in the timed frames, and
+the increase of every plain counter (the keyframes submitted, the GN trips
+used and unrolled) with the share of the unrolled GN trips used: the
+difference of two ``utils/profiling.counters()`` snapshots (``window``;
+nested blocks count inside their callers).  It imports
 only ``plslam_tpu_torch``, so the same script can run against another
 checkout put first on PYTHONPATH.  Needs CUDA.
 """
@@ -26,14 +29,11 @@ checkout put first on PYTHONPATH.  Needs CUDA.
 from __future__ import annotations
 
 import argparse
-import collections
 import json
 import os
 import subprocess
 import sys
-import threading
 import time
-from typing import Callable
 
 import numpy as np
 import torch
@@ -76,82 +76,36 @@ def configs(name: str):
             MapConfig(**caps, plucker_lines=False, has_refinement=True))
 
 
-# the steps --stages times: PLSLAM's, the tracker's and the mapper's (the
-# fused association, the split one with the refinement, the local BA and
-# the map upkeep); those a checkout lacks are skipped
-STAGES = {"slam": ("process", "_submit", "_insert_keyframe"),
-          "vo": ("process",),
-          "mapper": ("add_keyframe", "_associate_and_insert", "_assoc", "_assoc_prog",
-                     "_fetch_with_pending", "_match_kf2kf", "_refine_kf_pose", "_match_map2kf",
-                     "_spawn_landmarks", "local_bundle_adjustment", "build_local_ba",
-                     "_solve_local", "flush_ba", "cull_landmarks",
-                     "refresh_landmark_descriptors")}
-
-
-# and, on every thread, a program's replay (the graph launch) and a staged
-# program's wait for its last replay and its fill
-CLASS_STAGES = {"Program": ("__call__",), "StagedProgram": ("wait", "_fill")}
-
-
-def wrap_timers(targets) -> tuple[dict, Callable[[], None]]:
-    """Wrap each (object, step, key) of ``targets`` in a host timer: (the
-    dict that fills with (thread name, key) -> [seconds of each call], a
-    function that unwraps them).  A step the object lacks is skipped."""
-    acc = collections.defaultdict(list)
-    wrapped = []
-
-    def wrap(obj, step, key):
-        fn = getattr(obj, step, None)
-        if fn is None:
-            return
-
-        def timed(*a, **k):
-            t = time.perf_counter()
-            try:
-                return fn(*a, **k)
-            finally:
-                acc[(threading.current_thread().name, key)].append(time.perf_counter() - t)
-
-        setattr(obj, step, timed)
-        wrapped.append((obj, step, fn))
-
-    for obj, step, key in targets:
-        wrap(obj, step, key)
-
-    def unwrap():
-        for obj, step, fn in reversed(wrapped):
-            if isinstance(obj, type):
-                setattr(obj, step, fn)
-            else:
-                delattr(obj, step)   # the instance attribute over the method
-
-    return acc, unwrap
-
-
-def time_stages(slam):
-    """Wrap ``STAGES`` of ``slam`` and ``CLASS_STAGES`` of ``graphs`` in
-    host timers (``wrap_timers``)."""
-    from plslam_tpu_torch import graphs
-
-    targets = [(slam if obj_name == "slam" else getattr(slam, obj_name), step,
-                f"{obj_name}.{step}") for obj_name, steps in STAGES.items() for step in steps]
-    for cls_name, steps in CLASS_STAGES.items():
-        cls = getattr(graphs, cls_name, None)
-        targets += [(cls, step, f"graphs.{cls_name}.{step}")
-                    for step in (steps if cls is not None else ())]
-    return wrap_timers(targets)
-
-
 def _sync(dev) -> None:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
 
 
+def window(before: dict, after: dict) -> dict:
+    """What ``--stages`` prints of the timed frames, from two ``counters()``
+    snapshots: ``"ms_calls"``, ``{"<thread> <block>": [ms per call,
+    calls]}`` of the ``timed`` blocks; ``"counts"``, ``{"<thread>
+    <counter>": increase}`` of the plain counters; and
+    ``"gn_trips_used_pct"``, 100 x the GN trips used over those unrolled
+    (None without a tracked frame)."""
+    from plslam_tpu_torch.utils.profiling import added, per_call_ms
+
+    rows, counts = per_call_ms(before, after), added(before, after)
+    used = sum(c.get("vo.gn_trips_used", 0) for c in counts.values())
+    unrolled = sum(c.get("vo.gn_trips_unrolled", 0) for c in counts.values())
+    return {"ms_calls": {f"{th} {name}": [round(ms, 3), n] for th, by in sorted(rows.items())
+                         for name, (ms, n) in sorted(by.items())},
+            "counts": {f"{th} {name}": n for th, by in sorted(counts.items())
+                       for name, n in sorted(by.items())},
+            "gn_trips_used_pct": round(100.0 * used / unrolled, 3) if unrolled else None}
+
+
 def run_once(dev, frames: list, name: str, stages: bool = False):
-    """One graphed PLSLAM over the frames: (timed frames/s, keyframes, the
-    stage times of the timed frames or None)."""
+    """One graphed PLSLAM over the frames: (timed frames/s, keyframes,
+    ``window`` of the timed frames or None)."""
     from plslam_tpu_torch.core.camera import StereoCamera
     from plslam_tpu_torch.pipeline import PLSLAM
+    from plslam_tpu_torch.utils.profiling import counters
 
     sc = scene()
     cam = StereoCamera.create(sc.fx, sc.fy, sc.cx, sc.cy, sc.b, width=sc.width, height=sc.height)
@@ -161,20 +115,17 @@ def run_once(dev, frames: list, name: str, stages: bool = False):
         slam.process(*frames[i], timestamp=0.05 * i)
     slam.wait_until_idle()
     _sync(dev)
-    acc, unwrap = time_stages(slam) if stages else (None, None)
+    before = counters()
     t = time.perf_counter()
     for i in range(WARMUP, len(frames)):
         slam.process(*frames[i], timestamp=0.05 * i)
     slam.wait_until_idle()
     _sync(dev)
     fps = (len(frames) - WARMUP) / (time.perf_counter() - t)
+    seen = window(before, counters()) if stages else None
     n_kf = len(slam.mapper.map.keyframes)
     slam.finish(run_gba=False)
-    if acc is not None:
-        unwrap()
-        acc = {f"{th} {key}": [round(1e3 * sum(ts) / len(ts), 3), len(ts)]
-               for (th, key), ts in sorted(acc.items())}
-    return fps, n_kf, acc
+    return fps, n_kf, seen
 
 
 def main(argv=None) -> int:
@@ -186,7 +137,7 @@ def main(argv=None) -> int:
     ap.add_argument("--frames", default=None, help="load the frames from this .npy file")
     ap.add_argument("--save", default=None, help="write the rendered frames here and stop")
     ap.add_argument("--stages", action="store_true",
-                    help="host ms per call of each step, by thread")
+                    help="host ms per call of each step and the counts, by thread")
     args = ap.parse_args(argv)
     if args.save:
         np.save(args.save, render_frames(args.length))
@@ -209,7 +160,10 @@ def main(argv=None) -> int:
                       "switch_interval": sys.getswitchinterval(),
                       "frames_per_s": [round(f, 3) for f, _, _ in runs],
                       "keyframes": [k for _, k, _ in runs],
-                      "stages_ms_calls": [st for _, _, st in runs] if args.stages else None,
+                      "stages_ms_calls": [w["ms_calls"] for _, _, w in runs] if args.stages else None,
+                      "stages_counts": [w["counts"] for _, _, w in runs] if args.stages else None,
+                      "gn_trips_used_pct": ([w["gn_trips_used_pct"] for _, _, w in runs]
+                                            if args.stages else None),
                       "package": os.path.dirname(plslam_tpu_torch.__file__), "card": smi}))
     return 0
 

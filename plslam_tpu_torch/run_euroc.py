@@ -17,7 +17,8 @@ host (``io/euroc``).  A params file with ``images_subfolder_l/r`` keys
 mav0/cam*/data layout is searched.  Prints per-frame tracking stats every
 10 frames, the host time of each stage (``wait`` for the decoded frame,
 ``upload``, ``rectify`` and ``process``, or ``read`` and ``process``
-without the loader), and with ``--gt`` the JSON line
+without the loader; ``STAGES``, from this thread's counters of
+``utils/profiling``), and with ``--gt`` the JSON line
 ``{"ate_rmse_m", "n_keyframes"}`` last.  ``main(argv)`` runs in-process and
 returns the pipeline, the stage times and the result.
 """
@@ -28,12 +29,16 @@ import argparse
 import dataclasses
 import json
 import os
+import threading
 import time
 
 import numpy as np
 
 REPO_CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                             "configs")
+# the printed stages and the counters of this thread that time them
+STAGES = {"wait": "io.wait", "upload": "io.upload", "rectify": "io.rectify", "read": "io.read",
+          "process": "pipeline.process"}
 
 
 def parse_args(argv=None):
@@ -68,7 +73,7 @@ def main(argv=None) -> dict:
                            load_params)
     from .io.trajectory import associate_timestamps, ate_rmse
     from .pipeline import PLSLAM
-    from .utils.profiling import StageTimer
+    from .utils.profiling import counters, per_call_ms, timed
 
     params = args.params or os.path.join(REPO_CONFIGS, "euroc_params.yaml")
     calib = load_euroc_calib(params)
@@ -97,23 +102,22 @@ def main(argv=None) -> dict:
         maps = None if calib.identity_maps else (calib.map_l, calib.map_r)
         loader = StereoLoader(ds.files_l, ds.files_r, calib.width, calib.height,
                               maps=maps, device=slam.device)
-    timer = StageTimer()
+    before = counters()
     t_start = time.time()
     try:
         for i in range(len(ds)):
             if loader is not None:
                 # one get per index: the loader hands each frame over once
-                with timer.stage("wait"):
+                with timed("io.wait"):
                     pair = loader.take(i)
-                with timer.stage("upload"):
+                with timed("io.upload"):
                     pair = loader.upload(pair)
-                with timer.stage("rectify"):
+                with timed("io.rectify"):
                     il, ir = loader.rectify(pair)
             else:
-                with timer.stage("read"):
+                with timed("io.read"):
                     il, ir, _ = ds[i]
-            with timer.stage("process"):
-                res = slam.process(il, ir, ds.timestamps[i])
+            res = slam.process(il, ir, ds.timestamps[i])
             if res is not None and i % 10 == 0:
                 print(f"frame {i}: inliers={int(res.n_inliers)} err={float(res.err):.4f} "
                       f"kf={bool(res.is_kf)} ({(time.time() - t_start) / max(i, 1):.3f}s/frame)",
@@ -126,7 +130,13 @@ def main(argv=None) -> dict:
     slam.finish(run_gba=not args.no_gba)
     slam.save_trajectory_tum(args.out)
     print(f"saved {len(slam.mapper.map.keyframes)} keyframes to {args.out}")
-    stages = timer.summary()
+    rows = per_call_ms(before, counters()).get(threading.current_thread().name, {})
+    stages = {}
+    for key, name in STAGES.items():
+        if name in rows:
+            ms, n = rows[name]
+            stages[key] = {"total_s": round(ms * n / 1e3, 4), "mean_ms": round(ms, 3),
+                           "count": n}
     print(f"stages: {json.dumps(stages)}; {len(ds) / max(wall, 1e-9):.3f} frames/s "
           f"over {len(ds)} frames", flush=True)
 

@@ -31,7 +31,8 @@ from .frontend.features import StereoFeatures
 from .frontend.frame import (FrontendConfig, _detect_describe_lines_batch,
                              _detect_describe_points_batch, _match_stereo_lines,
                              _match_stereo_points)
-from .frontend.tracker import TrackerConfig, optimize_pose
+from .frontend.tracker import TrackerConfig, optimize_pose, trips_used
+from .utils.profiling import span
 
 
 class FrameResult(NamedTuple):
@@ -43,6 +44,7 @@ class FrameResult(NamedTuple):
     good: torch.Tensor
     is_kf: torch.Tensor
     entropy_ratio: torch.Tensor
+    gn_trips_used: torch.Tensor  # f32: GN trips that entered not done, both solves
 
 
 class VOState(NamedTuple):
@@ -112,6 +114,13 @@ def frame_scalars(res: FrameResult) -> torch.Tensor:
         res.T_f_w.reshape(lead + (16,)).to(f32)], dim=-1)
 
 
+def frame_record(res: FrameResult) -> torch.Tensor:
+    """One flat f32 buffer, ``frame_scalars`` then the GN trips used, each
+    contiguous (22 floats unbatched): the frame's one host copy in
+    ``PLSLAM``."""
+    return torch.cat([frame_scalars(res).reshape(-1), res.gn_trips_used.reshape(-1)])
+
+
 class GraphedStep:
     """The sequential state in static buffers, updated in place by one
     captured program per image shape (``graphs.Program``): the port's
@@ -133,7 +142,7 @@ class GraphedStep:
         self._state = None
         self._ready = False           # initialize() or a state assignment happened
         self._programs: dict = {}     # (H, W) -> (image buffer, Program, layout box)
-        self.frame_scalars: Optional[torch.Tensor] = None
+        self.frame_record: Optional[torch.Tensor] = None
 
     @property
     def state(self) -> Optional[VOState]:
@@ -151,6 +160,13 @@ class GraphedStep:
             self._state = graphs.tree_clone(st)
             self._programs.clear()
         self._ready = True
+
+    @property
+    def frame_scalars(self) -> Optional[torch.Tensor]:
+        """The last frame's ``frame_scalars``: a view of ``frame_record``."""
+        if self.frame_record is None:
+            return None
+        return self.frame_record[:21 * self._lead.numel()].view(self._lead + (21,))
 
     @property
     def current_features(self) -> StereoFeatures:
@@ -173,8 +189,9 @@ class GraphedStep:
             def run():
                 res, new = self._advance(imgs, state)
                 graphs.tree_copy_(state, new)
-                buf, box["layout"] = graphs.pack({**res._asdict(),
-                                                   "scalars": frame_scalars(res)})
+                out = {**res._asdict(), "record": frame_record(res)}
+                del out["gn_trips_used"]  # it is in the record
+                buf, box["layout"] = graphs.pack(out)
                 return buf
 
             saved = graphs.tree_clone(state)
@@ -188,10 +205,12 @@ class GraphedStep:
         if not self._ready:
             raise RuntimeError("call initialize() first")
         imgs, prog, box = self._program(hw)
-        fill(imgs)
-        out = graphs.unpack(prog().clone(), box["layout"])
-        self.frame_scalars = out.pop("scalars")
-        return FrameResult(**out)
+        with span("vo.replay"):
+            fill(imgs)
+            out = graphs.unpack(prog().clone(), box["layout"])
+        rec = self.frame_record = out.pop("record")
+        lead = self._lead = out["T_f_w"].shape[:-2]
+        return FrameResult(**out, gn_trips_used=rec[21 * lead.numel():].view(lead))
 
     def programs(self) -> list:
         """The captured programs, one per image shape seen."""
@@ -366,7 +385,7 @@ def match_and_track(kp_pair, seg_pair, state: VOState, cam: StereoCamera,
 
     res = FrameResult(T_f_w=T_f_w, DT=est.DT, DT_cov=est.cov, err=est.err,
                       n_inliers=est.n_inliers, good=est.good, is_kf=is_kf,
-                      entropy_ratio=entropy_ratio)
+                      entropy_ratio=entropy_ratio, gn_trips_used=trips_used(est.done_in))
     new_state = VOState(
         features=feats, T_f_w=T_f_w, T_f_w_cov=cov, T_prevKF=state.T_prevKF,
         cov_prevKF_accum=cov_accum, entropy_first=entropy_first,

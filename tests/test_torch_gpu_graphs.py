@@ -5,8 +5,9 @@ refinement), the loop closer's BoW transform and verification pose solve,
 and the programs captured one trip at a time (the chunked GBA on a
 problem of 3 chunks and on phase 5's SLAM map, the PGO on a ring
 closure's pose graph) bit for bit, the launch accounting of replays, a
-capture that fails raising instead of running eagerly, and a capture
-after the caching allocator's cache has filled the card.
+capture that fails raising instead of running eagerly, a capture after
+the caching allocator's cache has filled the card, and ``graphs.stats()``
+with a released program alive.
 
 Marked ``gpu``; each test skips when no CUDA device is present.  On a
 machine with one (``--noconftest``: its tests/conftest.py imports jax):
@@ -308,6 +309,34 @@ def test_replays_count_their_launches(dev):
     torch.cuda.synchronize()
     assert wrapper.launches == n0 + warm + 6 and prog.replays == 3
     assert torch.equal(out, wrapper(d1, wrapper(d1, d2)[:, :8].contiguous()))
+
+
+def test_stats_with_a_released_program_alive_and_the_capture_timed(dev):
+    """``graphs.stats()`` skips a released program that is still alive,
+    and ``graphs.captures()`` counts as it does; the capture is timed (``graphs.capture``) and a staged program's wait
+    for its last replay too (``graphs.staged.wait``), on this thread."""
+    from plslam_tpu_torch.utils.profiling import counters
+
+    me, n_cap = counters().get("MainThread", {}), graphs.captures()
+    x = torch.ones(1024, device=dev)
+    prog = graphs.Program(lambda: x * 2, dev)
+    held = graphs.Program(lambda: x + 1, dev)
+    live = graphs.stats()
+    prog()
+    torch.cuda.synchronize()
+    prog.release()
+    st = graphs.stats()
+    assert prog.graph is None and st["live"] == live["live"] - 1
+    assert 0 < st["pool_bytes"] <= live["pool_bytes"]
+    staged = graphs.StagedProgram(lambda inp: inp["a"] * 2, {"a": np.ones(8, np.float32)}, dev)
+    staged({"a": np.ones(8, np.float32)})
+    staged({"a": np.ones(8, np.float32)})
+    after = counters()["MainThread"]
+    assert after["graphs.capture.calls"] - me.get("graphs.capture.calls", 0) == 3
+    assert after["graphs.capture.ns"] > me.get("graphs.capture.ns", 0)
+    assert after["graphs.staged.wait.calls"] - me.get("graphs.staged.wait.calls", 0) == 1
+    assert graphs.captures() == n_cap + 3 == graphs.stats()["captures"]
+    del held
 
 
 def test_a_capture_that_syncs_raises(dev):

@@ -119,10 +119,23 @@ def test_frame_scalars_equal_the_jax_pack(vo_run):
     of the result it returned."""
     _, _, results, _, kept = vo_run
     for r, (_, _, sc) in zip(results, kept):
-        jres = jvo.FrameResult(*(jnp.asarray(x) for x in to_np(r)))
+        jres = jvo.FrameResult(**{k: jnp.asarray(getattr(to_np(r), k))
+                                  for k in jvo.FrameResult._fields})
         want = np.asarray(JPLSLAM._pack_frame_scalars(jres))
         np.testing.assert_array_equal(to_np(frame_scalars(r)), want)
         np.testing.assert_array_equal(to_np(sc), want)
+
+
+def test_frame_record_carries_the_gn_trips(vo_run):
+    """The frame's one host copy (``frame_record``) is the scalar pack then
+    the GN trips used of the result it returned, and ``frame_scalars`` is a
+    view of it."""
+    vo, _, results, _, _ = vo_run
+    rec = vo.frame_record
+    assert rec.shape == (22,) and vo.frame_scalars.data_ptr() == rec.data_ptr()
+    np.testing.assert_array_equal(to_np(rec[:21]), to_np(frame_scalars(results[-1])))
+    used = float(results[-1].gn_trips_used)
+    assert float(rec[21]) == used and used == int(used) and 2 <= used <= 15
 
 
 def test_jax_state_continues_to_the_jax_poses(scene_frames):
@@ -292,7 +305,8 @@ def test_frame_result_fields_survive_the_pack():
     r = FrameResult(T_f_w=torch.eye(4), DT=torch.eye(4), DT_cov=torch.zeros(6, 6),
                     err=torch.tensor(0.5), n_inliers=torch.tensor(40, dtype=torch.int32),
                     good=torch.tensor(True), is_kf=torch.tensor(False),
-                    entropy_ratio=torch.tensor(float("nan")))
+                    entropy_ratio=torch.tensor(float("nan")),
+                    gn_trips_used=torch.tensor(4.0))
     buf, layout = graphs.pack(r._asdict())
     back = FrameResult(**graphs.unpack(buf, layout))
     assert results_equal(back, r)

@@ -140,7 +140,9 @@ def _frozen_carry_gn(DT0, pts, ls, cam, cfg, max_iters):
     err_prev = torch.full((), 9.9e8, dtype=dtype, device=dev)
     done = torch.zeros((), dtype=torch.bool, device=dev)
     good = torch.ones((), dtype=torch.bool, device=dev)
+    done_in = []
     for _ in range(max_iters):
+        done_in.append(done)
         H, g, err = tracker.build_normal_equations(DT, pts, ls, cam, cfg)
         stop = (torch.abs(err - err_prev) < cfg.min_error_change) | (err < cfg.min_error)
         L, chol_ok = tracker._cholesky(H)
@@ -155,7 +157,8 @@ def _frozen_carry_gn(DT0, pts, ls, cam, cfg, max_iters):
         done = halt | small
     H, _, err_final = tracker.build_normal_equations(DT, pts, ls, cam, cfg)
     cov = torch.where(good, tracker._solve_spd(H, eye6), eye6)
-    return tracker.GNResult(DT=DT, cov=cov, err=torch.where(good, err_final, -1.0), good=good)
+    return tracker.GNResult(DT=DT, cov=cov, err=torch.where(good, err_final, -1.0), good=good,
+                            done_in=tuple(done_in))
 
 
 @pytest.mark.parametrize("case", ["noisy", "forms_differ"])
@@ -173,7 +176,7 @@ def test_early_exit_is_the_frozen_carry_bit_for_bit(case):
     for max_iters in (5, 10):
         got = tracker.gauss_newton(DT0, tp, tl, tcam, cfg, max_iters)
         want = _frozen_carry_gn(DT0, tp, tl, tcam, cfg, max_iters)
-        for a, b in zip(got, want):
+        for a, b in zip(got[:4] + got.done_in, want[:4] + want.done_in):
             assert torch.equal(a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
 
 
@@ -219,3 +222,69 @@ def test_euroc_default_camera_matches_jax():
     got = core.euroc_default_camera()
     for name in got._fields:
         assert float(getattr(got, name)) == float(np.asarray(getattr(want, name))), name
+
+
+# ---------------------------------------------------------------------------
+# GN trips used against unrolled
+
+
+def _host_trips(DT, pts, ls, cam, cfg, max_iters):
+    """The trips a GN solve uses, from a plain Python loop whose stopping
+    rules are decided on the host: a trip is used when it starts before
+    the loop is done.  Done never clears, so the while form stops there
+    and the scan form's later trips (a zero step) are not used either."""
+    err_prev = torch.full((), 9.9e8, dtype=DT.dtype)
+    done, used = False, 0
+    for _ in range(max_iters):
+        if done:
+            break
+        used += 1
+        H, g, err = tracker.build_normal_equations(DT, pts, ls, cam, cfg)
+        stop = bool((torch.abs(err - err_prev) < cfg.min_error_change) | (err < cfg.min_error))
+        L, chol_ok = tracker._cholesky(H)
+        delta = torch.cholesky_solve(g[:, None], L)[:, 0]
+        if stop or not (bool(chol_ok) and bool(torch.isfinite(delta).all())):
+            done = True
+            continue
+        DT = lie.exp_se3(-delta) @ DT
+        err_prev = err
+        done = bool(torch.linalg.norm(delta) < cfg.min_error_change)
+    return used
+
+
+@pytest.mark.parametrize("early_exit", [True, False])
+@pytest.mark.parametrize("case", ["noisy", "forms_differ"])
+def test_gn_trips_used_equal_a_host_loop(case, early_exit):
+    """``PoseEstimate.done_in`` holds the 5 + 10 trips unrolled; the used
+    ones (``trips_used``) equal the host loop's count over the inputs
+    ``optimize_pose`` handed each of its two solves, at least one a solve;
+    each solve's ``done_in`` agrees."""
+    if case == "noisy":
+        pts, ls = _inputs(0)
+        kw = {}
+    else:
+        pts, ls, kw = _forms_differ_case()
+    cfg = tracker.TrackerConfig(early_exit=early_exit, **kw)
+    _, tcam = cams()
+    calls, real = [], tracker.gauss_newton
+
+    def spy(DT0, p, l, cam, c, max_iters):
+        res = real(DT0, p, l, cam, c, max_iters)
+        calls.append(((DT0, p, l, cam, c, max_iters), res))
+        return res
+
+    tracker.gauss_newton = spy
+    try:
+        est, _, _ = tracker.optimize_pose(*_port(pts, ls), tcam, cfg)
+    finally:
+        tracker.gauss_newton = real
+    assert [c[0][-1] for c in calls] == [cfg.max_iters, cfg.max_iters_ref] == [5, 10]
+    want = []
+    for args, res in calls:
+        n = _host_trips(*args)
+        assert n >= 1
+        assert sum(not bool(d) for d in res.done_in) == n and len(res.done_in) == args[-1]
+        want.append(n)
+    assert est.done_in == calls[0][1].done_in + calls[1][1].done_in and len(est.done_in) == 15
+    used = tracker.trips_used(est.done_in)
+    assert used.dtype == torch.float32 and float(used) == sum(want)

@@ -4,13 +4,11 @@ association, inlier flags and valid masks equal, pixels to 1e-4, residuals
 to 1e-4 + 1e-3 relative: the Pluecker residual's image line has f32
 coefficients up to fx*fy ~ 2e5, which round at ~1e-4 relative),
 ``dump_residuals_jsonl`` records, ``_scene_data`` and the scene HTML
-on the same feature-level map (tests/test_viz_scene.py's cases), and the
-``StageTimer`` cases of tests/test_profiling.py plus ``device_trace``."""
+on the same feature-level map (tests/test_viz_scene.py's cases)."""
 
 import json
 import os
 import re
-import time
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,7 +25,6 @@ from plslam_tpu_torch.backend import mapping as tmap
 from plslam_tpu_torch.convert import stereo_features_from_numpy
 from plslam_tpu_torch.core.camera import StereoCamera
 from plslam_tpu_torch.frontend import tracker as ttrk
-from plslam_tpu_torch.utils.profiling import StageTimer, device_trace
 
 from test_torch_helpers import one_torch_thread  # noqa: F401
 
@@ -156,46 +153,3 @@ def test_scene_html_matches_jax(tmp_path):
     assert mg and mw
     assert got.replace(mg.group(1), "") == want.replace(mw.group(1), "")
     _assert_same_data(json.loads(mg.group(1)), json.loads(mw.group(1)))
-
-
-def test_stage_timer_accumulates():
-    t = StageTimer()
-    with t.stage("a"):
-        time.sleep(0.01)
-    with t.stage("a"):
-        time.sleep(0.01)
-    with t.stage("b", sync=True):
-        pass
-    s = t.summary()
-    assert s["a"]["count"] == 2
-    assert s["a"]["total_s"] >= 0.02
-    assert s["b"]["count"] == 1
-    assert s["a"]["mean_ms"] >= 10.0
-
-
-def test_stage_timer_jsonl_dump(tmp_path):
-    t = StageTimer()
-    with t.stage("x"):
-        pass
-    p = str(tmp_path / "stages.jsonl")
-    t.dump_jsonl(p)
-    t.dump_jsonl(p)
-    lines = open(p).readlines()
-    assert len(lines) == 2
-    assert "x" in json.loads(lines[0])
-
-
-def test_stage_timer_counts_a_raising_stage():
-    t = StageTimer()
-    with pytest.raises(KeyError):
-        with t.stage("boom"):
-            raise KeyError("x")
-    assert t.summary()["boom"]["count"] == 1
-
-
-def test_device_trace_writes_a_chrome_trace(tmp_path):
-    with device_trace(str(tmp_path / "trace")) as prof:
-        torch.ones(8, 8) @ torch.ones(8, 8)
-    assert prof is not None
-    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
-    assert any("mm" in e.get("name", "") for e in trace["traceEvents"])
