@@ -232,7 +232,19 @@ class PLSLAM:
     # -- per-frame ---------------------------------------------------------
 
     def _image(self, img) -> torch.Tensor:
-        return torch.as_tensor(img, dtype=torch.float32, device=self.device)
+        """One image on ``self.device``, in the dtype it was handed (a raw
+        camera frame's uint8 crosses as a quarter of its float32 bytes).
+        It becomes float32 on the device, in the VO step's fill copy or
+        ``initialize``'s stack, with the values a host cast gives; from
+        pinned host memory the copy is asynchronous on this thread's
+        stream."""
+        t = torch.as_tensor(img)
+        if t.dtype != torch.float32:
+            add("pipeline.upload.on_card_cast")
+        pinned = self.device.type == "cuda" and t.device.type == "cpu" and t.is_pinned()
+        if pinned:
+            add("pipeline.upload.async")
+        return t.to(self.device, non_blocking=pinned)
 
     def process(self, img_l, img_r, timestamp: float = 0.0):
         """Track one stereo pair; a keyframe goes to the mapping worker."""
@@ -244,6 +256,11 @@ class PLSLAM:
         with timed("pipeline.upload"):
             il, ir = self._image(img_l), self._image(img_r)
         if not self._initialized:
+            copied = None
+            if self.device.type == "cuda":
+                # the caller may reuse a pinned source once this returns
+                copied = torch.cuda.Event()
+                copied.record(torch.cuda.current_stream(self.device))
             self.vo.prewarm(il.shape)
             feats = self.vo.initialize(il, ir)
             if len(self.mapper.map.keyframes) == 0:
@@ -258,13 +275,16 @@ class PLSLAM:
             self.kf_timestamps.append(timestamp)
             self._initialized = True
             self._frame_idx += 1
+            if copied is not None:
+                copied.synchronize()
             return None
         every = self.config.overlay_every
         # copies, taken on this thread's stream before the next replay
         # changes the static features
         prev_feats = self.vo.current_features if every > 0 else None
         res = self.vo.process(il, ir)
-        # the frame's one host copy: its scalars and the GN trips used
+        # the frame's one host copy: its scalars and the GN trips used (it
+        # also waits for the images' copies from a pinned source)
         with timed("pipeline.scalars.wait"):
             rec = self.vo.frame_record.cpu().numpy()
         sc = rec[:21]

@@ -6,8 +6,9 @@ and the programs captured one trip at a time (the chunked GBA on a
 problem of 3 chunks and on phase 5's SLAM map, the PGO on a ring
 closure's pose graph) bit for bit, the launch accounting of replays, a
 capture that fails raising instead of running eagerly, a capture after
-the caching allocator's cache has filled the card, and ``graphs.stats()``
-with a released program alive.
+the caching allocator's cache has filled the card, ``graphs.stats()``
+with a released program alive, and PLSLAM fed uint8 pairs from pinned
+memory bit for bit as fed their float32 twins.
 
 Marked ``gpu``; each test skips when no CUDA device is present.  On a
 machine with one (``--noconftest``: its tests/conftest.py imports jax):
@@ -337,6 +338,62 @@ def test_stats_with_a_released_program_alive_and_the_capture_timed(dev):
     assert after["graphs.staged.wait.calls"] - me.get("graphs.staged.wait.calls", 0) == 1
     assert graphs.captures() == n_cap + 3 == graphs.stats()["captures"]
     del held
+
+
+def _upload_run(dev, cam, pairs, pinned: bool):
+    """PLSLAM at phase 5's configuration over ``pairs``: from one pinned
+    uint8 pair buffer that is overwritten as soon as each ``process``
+    returns, or as they are (float32 on the card).  Per frame: the first
+    frame's features, then each tracked frame's pose and host record; the
+    logs without their times; the main thread's counters' increase."""
+    from plslam_tpu_torch.utils.profiling import counters
+
+    cfg, mcfg = chip_smoke.slam_configs()
+    slam = PLSLAM(cam, cfg, mcfg, device=dev)
+    src = torch.empty((2,) + tuple(pairs[0][0].shape), dtype=torch.uint8, pin_memory=True)
+    before = counters().get("MainThread", {})
+    out = []
+    for i, (il, ir) in enumerate(pairs):
+        if pinned:
+            src[0].copy_(il)
+            src[1].copy_(ir)
+            res = slam.process(src[0], src[1], timestamp=0.05 * i)
+            src.fill_(0)
+        else:
+            res = slam.process(il, ir, timestamp=0.05 * i)
+        if res is None:
+            out.append(graphs.leaves(slam.vo.current_features))
+        else:
+            out.append((res.T_f_w.clone(), slam.vo.frame_record.cpu()))
+    slam.finish(run_gba=False)
+    after = counters()["MainThread"]
+    logs = [{k: v for k, v in vars(lg).items() if k != "t_total"} for lg in slam.logs]
+    return out, logs, {k: after[k] - before.get(k, 0) for k in after}
+
+
+def test_pinned_uint8_pairs_track_as_their_float_twins(dev):
+    """Phase 5's 20 frames rounded to uint8: handed from a pinned buffer
+    (copied asynchronously, cast on the card) and as float32 on the card,
+    the first frame's features, every pose, host record and log bit for
+    bit; overwriting the pinned source as soon as ``process`` returns
+    changes nothing, the first frame included."""
+    scene = SyntheticScene(n_points=600, n_lines=60, seed=0, width=752, height=480,
+                           fx=435.2, fy=435.2, cx=367.4, cy=252.2)
+    cam, _, frames = chip_smoke.slam_frames(dev, scene)
+    u8 = [tuple(x.round().clamp(0, 255).to(torch.uint8).cpu() for x in fr) for fr in frames]
+    f32 = [tuple(x.to(dev).float() for x in fr) for fr in u8]
+    n = len(u8)
+    (ou, lu, cu), (of, lf, cf) = (_upload_run(dev, cam, u8, True),
+                                  _upload_run(dev, cam, f32, False))
+    assert n >= 20 and len(lu) == n - 1 and lu == lf
+    first_u, first_f = ou[0], of[0]
+    assert first_u.keys() == first_f.keys()
+    assert all(chip_smoke.bits_equal(first_u[k], first_f[k]) for k in first_u)
+    for (tu, ru), (tf, rf) in zip(ou[1:], of[1:]):
+        assert chip_smoke.bits_equal(tu, tf) and chip_smoke.bits_equal(ru, rf)
+    assert cu["pipeline.upload.async"] == cu["pipeline.upload.on_card_cast"] == 2 * n
+    assert cf.get("pipeline.upload.async", 0) == cf.get("pipeline.upload.on_card_cast", 0) == 0
+    assert cu["pipeline.upload.calls"] == cf["pipeline.upload.calls"] == n
 
 
 def test_a_capture_that_syncs_raises(dev):

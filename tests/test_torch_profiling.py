@@ -12,11 +12,14 @@ and what the program counts with them:
   ``graphs.captures()`` without the allocator's snapshot;
 - a short CPU ``PLSLAM`` run: one ``pipeline.process`` call a frame, one
   ``pipeline.keyframes`` a keyframe the logs flag, 15 GN trips unrolled a
-  tracked frame, the mapper's keyframes on its own thread."""
+  tracked frame, the mapper's keyframes on its own thread;
+- uint8 frames track bit for bit as their float32 twins, and count as
+  cast on the device."""
 
 import gc
 import threading
 
+import numpy as np
 import pytest
 import torch
 import torch.autograd.profiler as autograd_profiler
@@ -196,14 +199,18 @@ def test_graph_captures_take_no_allocator_snapshot(monkeypatch):
 N_FRAMES = 4
 
 
-def test_plslam_counts_frames_keyframes_and_gn_trips():
-    scene = SyntheticScene(seed=7)
+def _small_slam(scene):
     cam = StereoCamera.create(scene.fx, scene.fy, scene.cx, scene.cy, scene.b,
                               width=scene.width, height=scene.height)
     cfg = PLSLAMConfig(orb_nfeatures=256, lsd_nfeatures=64, orb_fast_th=15,
                        min_entropy_ratio=0.99)
-    slam = PLSLAM(cam, cfg, MapConfig(local_ba_kf=8, ba_points=2048, ba_lines=256,
+    return PLSLAM(cam, cfg, MapConfig(local_ba_kf=8, ba_points=2048, ba_lines=256,
                                       ba_pobs=8192, ba_lobs=2048), device="cpu")
+
+
+def test_plslam_counts_frames_keyframes_and_gn_trips():
+    scene = SyntheticScene(seed=7)
+    slam = _small_slam(scene)
     main = threading.current_thread().name
     before = counters()
     for i, T in enumerate(circular_trajectory(N_FRAMES, step_t=0.12, step_r=0.015)):
@@ -232,3 +239,41 @@ def test_plslam_counts_frames_keyframes_and_gn_trips():
     # a frame's logged time is that of its process call, on the same clock
     ns = delta("pipeline.process.ns")
     assert sum(lg.t_total for lg in slam.logs) * 1e9 <= ns
+
+
+def _upload_run(frames):
+    """A CPU ``PLSLAM`` over ``frames``: (logs without their times, each
+    frame's pose or None, the keyframe trajectory, the main thread's
+    counters' increase)."""
+    slam = _small_slam(SyntheticScene(seed=7))
+    main = threading.current_thread().name
+    before = counters().get(main, {})
+    poses = []
+    for i, (il, ir) in enumerate(frames):
+        res = slam.process(il, ir, timestamp=0.05 * i)
+        poses.append(None if res is None else res.T_f_w.clone())
+    slam.finish(run_gba=False)
+    after = counters().get(main, {})
+    logs = [{k: v for k, v in vars(lg).items() if k != "t_total"} for lg in slam.logs]
+    return logs, poses, slam.keyframe_trajectory(), \
+        {k: after.get(k, 0) - before.get(k, 0) for k in after}
+
+
+def test_uint8_frames_cast_on_the_device_track_as_their_float_twins():
+    """The same frames, rounded to uint8, handed as uint8 and as float32:
+    every log field but the time, every pose and the keyframe trajectory
+    bit for bit; the uint8 images count as cast on the device (not copied
+    asynchronously: there is no card), the float ones do not."""
+    scene = SyntheticScene(seed=7)
+    u8 = [tuple(np.clip(np.rint(x), 0, 255).astype(np.uint8) for x in scene.render_stereo(T))
+          for T in circular_trajectory(N_FRAMES, step_t=0.12, step_r=0.015)]
+    f32 = [tuple(x.astype(np.float32) for x in pair) for pair in u8]
+    (lu, pu, tu, cu), (lf, pf, tf, cf) = _upload_run(u8), _upload_run(f32)
+    assert len(lu) == N_FRAMES - 1 and lu == lf
+    assert pu[0] is None and pf[0] is None
+    assert all(torch.equal(a, b) for a, b in zip(pu[1:], pf[1:]))
+    assert len(tu) >= 2 and all(np.array_equal(a, b) for a, b in zip(tu, tf))
+    assert cu.get("pipeline.upload.on_card_cast", 0) == 2 * N_FRAMES
+    assert cf.get("pipeline.upload.on_card_cast", 0) == 0
+    assert cu.get("pipeline.upload.async", 0) == cf.get("pipeline.upload.async", 0) == 0
+    assert cu["pipeline.upload.calls"] == cf["pipeline.upload.calls"] == N_FRAMES
