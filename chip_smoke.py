@@ -17,11 +17,16 @@ Phases, each reported on its own lines:
      library yardstick's device time (one PyTorch call for the same
      function, never called by the port), the bound (bytes or operations
      over the H100's published peaks) and the share bound / device time;
+     the GN pose solve on the VO frames' own solves against its plain twin
+     (it is not bit-exact: ``good`` equal, and each solve's DT, cov and err
+     within twice the plain path's own spread over rounding on that
+     solve, limits in the ``kernels`` line) with its device µs per call and
+     bound;
   4. VO path: ``VisualOdometry`` at the bench configuration (752x480,
      1200 points, 256 line slots) on the synthetic scene, its step one
      CUDA graph (``prewarm``, then one replay per frame): every frame must
-     track, ATE must stay under the floor, 2 / 4 / 4 patch / FAST / Hamming
-     launches per frame through the replays' accounting, one replay and
+     track, ATE must stay under the floor, 2 / 4 / 4 / 2 patch / FAST /
+     Hamming / GN launches per frame through the replays' accounting, one replay and
      one graph launch per frame, no host sync in a graphed step, every
      frame's ``T_f_w`` bit-identical to the same step with
      ``capture=False``; frames/s of both forms in interleaved windows from
@@ -198,7 +203,8 @@ import torch
 
 from plslam_tpu_torch.roofline import (F32_ADD_PER_S, F32_MINMAX_PER_S,  # noqa: F401
                                        FAST_CANDIDATE_OPS, FAST_PX_OPS, INT8_OPS_PER_S, bound,
-                                       fast_bytes, fast_ops, hamming_work, patches_bytes)
+                                       fast_bytes, fast_ops, gn_work, hamming_work,
+                                       patches_bytes)
 
 # ATE (m, no alignment, all 24 poses) of the JAX package's VisualOdometry
 # on the same 24 frames, run on CPU; the port must stay within 2x of it.
@@ -274,7 +280,7 @@ BATCH_ATE_B = 4
 BATCH_MATCH_B = 2   # streams held against single-stream VisualOdometry
 # launches per VO frame, and per batched frame whatever B is
 FRAME_LAUNCHES = {"fast_score_nms_batch": 4, "gather_patches_batch": 2,
-                  "hamming_distance_matrix_cuda": 4}
+                  "hamming_distance_matrix_cuda": 4, "gauss_newton_cuda": 2}
 RENDER_WORKERS = 8
 # tests/test_rgbd.py's two-frame RGB-D scenario
 RGBD_XI = (0.02, -0.01, 0.1, 0.005, -0.008, 0.01)
@@ -539,11 +545,70 @@ def main_path_corners(levels, pair):
             "lbd": (torch.cat([gx, gy]).contiguous(), torch.cat([ly, ly]), torch.cat([lx, lx]))}
 
 
-def phase_kernels(dev, levels, pair, card, flat=None):
+def gn_rows(dev, calls, card) -> dict:
+    """The GN solve kernel on the VO frames' own solves (``calls``, from
+    ``profile_vo.gn_problems``): against the plain twin on the card, whose
+    result it does not equal bit for bit (the Gram sums, R p + t and the
+    6x6 factorisation round in another order), ``good`` equal and, solve by
+    solve, DT (m), cov (relative to its largest entry) and err (relative)
+    within the solve's own limit (``profile_vo.gn_limits``: twice the plain
+    path's spread over rounding on that solve), else raise; per
+    solve width its device µs (a graph of 100 launches), host ms, the plain
+    twin's ms and the bound of ``gn_work``."""
+    from plslam_tpu_torch.frontend import tracker
+    from plslam_tpu_torch.profile_vo import gn_differences, gn_limits
+
+    cam = camera_of_bench()
+    cfg = tracker.TrackerConfig()
+    errs, solves = {"DT": 0.0, "cov": 0.0, "err": 0.0}, []
+    for i, (DT0, pts, ls, mi) in enumerate(calls):
+        kern = tracker.gauss_newton(DT0, pts, ls, cam, cfg, mi)
+        plain = tracker.gauss_newton_plain(DT0, pts, ls, cam, cfg, mi)
+        if bool(kern.good) != bool(plain.good):
+            raise AssertionError(f"gauss_newton solve {i}: good {bool(kern.good)} against "
+                                 f"the plain path's {bool(plain.good)}")
+        got = gn_differences(kern, plain)
+        lim = gn_limits(DT0, pts, ls, cam, cfg, mi, plain)
+        solves.append({**got, **{f"{k}_limit": v for k, v in lim.items()}})
+        say(f"kernel gauss_newton solve {i} ({mi} trips) against the plain path: "
+            + ", ".join(f"{k} {got[k]:.3e} (limit {lim[k]:.3e})" for k in got))
+        if any(got[k] > lim[k] for k in got):
+            raise AssertionError(f"gauss_newton solve {i}: {got} past its limits {lim}")
+        errs = {k: max(errs[k], got[k]) for k in errs}
+    rows = []
+    for DT0, pts, ls, mi in calls[2:4]:
+        nbytes, ops = gn_work(pts.P.shape[0], ls.sP.shape[0], max_iters=mi)
+        row = time_shape((pts.P.shape[0], ls.sP.shape[0], mi),
+                         lambda: tracker.gauss_newton(DT0, pts, ls, cam, cfg, mi),
+                         lambda: tracker.gauss_newton_plain(DT0, pts, ls, cam, cfg, mi), {},
+                         nbytes, (ops, F32_ADD_PER_S))
+        rows.append(row)
+        say(f"kernel gauss_newton {row['shape']}: device {1e3 * row['device_ms']:.3f} us "
+            f"(bound {1e3 * row['bound_ms']:.3f} us by {row['bound_by']}, share "
+            f"{row['share']:.4f}), host {row['host_ms']:.6f} ms, plain {row['plain_ms']:.6f} "
+            f"ms on {card}")
+    say(f"kernel gauss_newton against the plain path on {len(calls)} VO solves: good equal, "
+        f"each within its limits; largest |difference| DT {errs['DT']:.3e} m, cov "
+        f"{errs['cov']:.3e}, err {errs['err']:.3e} (relative)")
+    return summarize("gauss_newton_cuda", rows, [1, 1], [errs["DT"]],
+                     source="plslam_tpu_torch/csrc/gauss_newton.cu",
+                     replaces="plslam_tpu_torch/frontend/tracker.py gauss_newton_plain",
+                     errors=errs, solves=solves)
+
+
+def camera_of_bench():
+    from plslam_tpu_torch.bench import SCENE, camera
+    from plslam_tpu_torch.io import SyntheticScene
+
+    return camera(SyntheticScene(**SCENE))
+
+
+def phase_kernels(dev, levels, pair, card, flat=None, gn_calls=()):
     """Each kernel vs its plain version at the main path's shapes, with its
     device time, host time, bound and library yardstick; with ``flat``, the
     (2B, H, W) stack of a batched frame, the patch gather and FAST also at
-    its shapes (``batched_shapes``)."""
+    its shapes (``batched_shapes``); with ``gn_calls``, the GN solve
+    (``gn_rows``)."""
     from plslam_tpu_torch.ops import cuda_fast, cuda_hamming, cuda_patches
     from plslam_tpu_torch.ops.image import build_pyramid
 
@@ -686,11 +751,13 @@ def phase_kernels(dev, levels, pair, card, flat=None):
                             source="plslam_tpu_torch/csrc/hamming.cu",
                             replaces="plslam_tpu/ops/pallas_hamming.py:45",
                             batched_shapes=batched))
+    if gn_calls:
+        report.append(gn_rows(dev, gn_calls, card))
     return report
 
 
 KERNEL_WRAPPERS = ("gather_patches_batch", "fast_score_nms_batch",
-                   "hamming_distance_matrix_cuda")
+                   "hamming_distance_matrix_cuda", "gauss_newton_cuda")
 
 
 def _wrappers():
@@ -2783,8 +2850,15 @@ def run_phases(args, dev, smi, kind, fixture, writer, render=None, eval_render=N
         # (2B, H, W) as BatchedVisualOdometry stacks it
         flat = torch.from_numpy(np.stack([st[0] for st in streams]).reshape(
             (-1,) + streams[0].shape[2:])).to(dev)
-    report = phase_kernels(dev, levels, pair, smi, flat)
-    del flat
+    from plslam_tpu_torch.frontend.frame import FrontendConfig
+    from plslam_tpu_torch.frontend.tracker import TrackerConfig
+    from plslam_tpu_torch.profile_vo import gn_problems
+
+    gn_calls = gn_problems(frames[:5], camera_of_bench(), FrontendConfig(n_points=1200,
+                                                                          n_lines=256),
+                           TrackerConfig(), dev)
+    report = phase_kernels(dev, levels, pair, smi, flat, gn_calls)
+    del flat, gn_calls
     if args.kernels:
         assert_no_jax()
         say(json.dumps({"kernels": report}))

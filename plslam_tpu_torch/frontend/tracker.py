@@ -14,7 +14,9 @@ package's fixed-length scan: a finished trip still applies exp(-0) and
 still updates ``good``.  In both forms a trip is used when it enters with
 the carry not yet done; ``optimize_pose`` hands on each trip's flag of its
 two solves (``PoseEstimate.done_in``), and the VO step counts them
-(``trips_used``).
+(``trips_used``).  On the card a whole ``gauss_newton`` call is one
+launch of ``csrc/gauss_newton.cu``, the same f32 arithmetic in one
+thread block; the code below is its plain twin and the CPU path.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ import torch
 from ..core import lie, robust
 from ..core.camera import StereoCamera
 from ..core.plucker import transform_plucker
+from ..ops import cuda_gauss_newton
 from .features import TrackedLines, TrackedPoints
 
 HOMOG_TH = 1e-7  # Config::homogTh (config.cpp:84)
@@ -232,8 +235,18 @@ class GNResult(NamedTuple):
 
 def gauss_newton(DT0: torch.Tensor, pts: TrackedPoints, ls: TrackedLines,
                  cam: StereoCamera, cfg: TrackerConfig, max_iters: int) -> GNResult:
-    """GN with the reference's stopping rules (:803-853) as a fixed-trip
-    masked loop in the form ``cfg.early_exit`` names (module docstring)."""
+    """GN with the reference's stopping rules (:803-853): CUDA tensors in
+    one kernel launch (``ops/cuda_gauss_newton``), CPU tensors in the
+    plain twin ``gauss_newton_plain``."""
+    if DT0.device.type == "cuda":
+        return cuda_gauss_newton.gauss_newton(DT0, pts, ls, cam, cfg, max_iters)
+    return gauss_newton_plain(DT0, pts, ls, cam, cfg, max_iters)
+
+
+def gauss_newton_plain(DT0: torch.Tensor, pts: TrackedPoints, ls: TrackedLines,
+                       cam: StereoCamera, cfg: TrackerConfig, max_iters: int) -> GNResult:
+    """GN as a fixed-trip masked loop in the form ``cfg.early_exit`` names
+    (module docstring)."""
     dtype, dev = DT0.dtype, DT0.device
     eye6 = torch.eye(6, dtype=dtype, device=dev)
     DT = DT0

@@ -26,11 +26,16 @@ from pathlib import Path
 
 import torch
 
+from ..utils import profiling
+
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# flags of one source beside NVCC_FLAGS: the GN solve rounds every product
+# and sum on its own, as the plain code's separate kernels do
+SOURCE_FLAGS = {"gauss_newton.cu": ("-fmad=false",)}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +45,9 @@ SIGNATURES = {
     "plslam_gather_patches": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "plslam_fast_score_nms": (_P, _P, _P, _P, _I, _I, _I, _P),
     "plslam_hamming": (_P, _P, _P, _I, _I, _I, _LL, _LL, _P),
+    "plslam_gauss_newton": (_P, _P),
+    "plslam_gn_select_test": (_P, _P, _I, _I, _P, _P),
+    "plslam_gn_max_rows": (),
 }
 
 
@@ -77,6 +85,7 @@ def build(srcs: list[Path], stem: str) -> tuple[Path, float, str]:
     the kernels' sources).  Returns the library's path, the seconds taken
     and nvcc's log."""
     h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    h.update(repr(sorted(SOURCE_FLAGS.items())).encode())
     for s in sorted(CSRC_DIR.rglob("*.cu")):
         h.update(str(s.relative_to(CSRC_DIR)).encode())
         h.update(s.read_bytes())
@@ -88,7 +97,8 @@ def build(srcs: list[Path], stem: str) -> tuple[Path, float, str]:
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
             nvcc = _nvcc()
             objs = [os.path.join(tmp, f"{s.stem}.o") for s in srcs]
-            jobs = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(s)] for o, s in zip(objs, srcs)]
+            jobs = [[nvcc, *NVCC_FLAGS, *SOURCE_FLAGS.get(s.name, ()), "-c", "-o", o, str(s)]
+                    for o, s in zip(objs, srcs)]
             procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                       text=True) for cmd in jobs]
             runs = [(cmd, p.communicate()[0], p.returncode) for cmd, p in zip(jobs, procs)]
@@ -181,15 +191,25 @@ class counted:
     keyed by the launching thread's name (the tracker and the mapping
     worker launch the same kernels).  Under ``recording()`` the launch is
     recorded for the graph being captured instead.  ``launches`` is the
-    total; assigning 0 to it resets every count."""
+    total; assigning 0 to it resets every count.
 
-    def __init__(self, fn):
+    ``counted.unobserved(counter)`` decorates a wrapper whose calls never
+    reach the ``observing`` hook (its launches are still counted and
+    tallied for replays), and whose launches are also added to the
+    thread's ``utils/profiling`` counter ``counter``."""
+
+    def __init__(self, fn, observed: bool = True, counter: str | None = None):
         functools.update_wrapper(self, fn)
         self._lock = threading.Lock()
         self._by_thread: dict[str, int] = {}
+        self._observed, self._counter = observed, counter
+
+    @classmethod
+    def unobserved(cls, counter: str):
+        return functools.partial(cls, observed=False, counter=counter)
 
     def __call__(self, *args, **kwargs):
-        hook = getattr(_observer, "hook", None)
+        hook = getattr(_observer, "hook", None) if self._observed else None
         if hook is not None:
             return hook(self, args, kwargs)
         return self.__wrapped__(*args, **kwargs)
@@ -206,6 +226,8 @@ class counted:
         name = threading.current_thread().name
         with self._lock:
             self._by_thread[name] = self._by_thread.get(name, 0) + n
+        if self._counter is not None:
+            profiling.add(self._counter, n)
 
     def launches_by_thread(self) -> dict[str, int]:
         with self._lock:

@@ -19,7 +19,8 @@ tracker can wait for the interpreter lock while the mapping thread runs
 Python.  ``--stages`` adds, per thread, the host ms per call and the
 calls of every ``timed`` block of the program in the timed frames, and
 the increase of every plain counter (the keyframes submitted, the GN trips
-used and unrolled) with the share of the unrolled GN trips used: the
+used and unrolled, the GN kernel's launches) with the share of the
+unrolled GN trips used and the GN launches per tracked frame: the
 difference of two ``utils/profiling.counters()`` snapshots (``window``;
 nested blocks count inside their callers).  It imports
 only ``plslam_tpu_torch``, so the same script can run against another
@@ -39,6 +40,7 @@ import numpy as np
 import torch
 
 WARMUP, LENGTH = 4, 20
+COUNTER = "kernels.gn_launches"     # ops/cuda_gauss_newton.COUNTER
 CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "configs")
 
 
@@ -85,19 +87,26 @@ def window(before: dict, after: dict) -> dict:
     """What ``--stages`` prints of the timed frames, from two ``counters()``
     snapshots: ``"ms_calls"``, ``{"<thread> <block>": [ms per call,
     calls]}`` of the ``timed`` blocks; ``"counts"``, ``{"<thread>
-    <counter>": increase}`` of the plain counters; and
+    <counter>": increase}`` of the plain counters;
     ``"gn_trips_used_pct"``, 100 x the GN trips used over those unrolled
-    (None without a tracked frame)."""
+    (None without a tracked frame); and ``"gn_launches_per_vo_frame"``,
+    ``{thread: GN kernel launches (the counter kernels.gn_launches) over
+    the frames tracked (pipeline.process calls)}``."""
     from plslam_tpu_torch.utils.profiling import added, per_call_ms
 
     rows, counts = per_call_ms(before, after), added(before, after)
     used = sum(c.get("vo.gn_trips_used", 0) for c in counts.values())
+    frames = sum(n for by in rows.values() for name, (_, n) in by.items()
+                 if name == "pipeline.process")
     unrolled = sum(c.get("vo.gn_trips_unrolled", 0) for c in counts.values())
     return {"ms_calls": {f"{th} {name}": [round(ms, 3), n] for th, by in sorted(rows.items())
                          for name, (ms, n) in sorted(by.items())},
             "counts": {f"{th} {name}": n for th, by in sorted(counts.items())
                        for name, n in sorted(by.items())},
-            "gn_trips_used_pct": round(100.0 * used / unrolled, 3) if unrolled else None}
+            "gn_trips_used_pct": round(100.0 * used / unrolled, 3) if unrolled else None,
+            "gn_launches_per_vo_frame": {th: round(c[COUNTER] / frames, 3)
+                                         for th, c in sorted(counts.items())
+                                         if frames and c.get(COUNTER)}}
 
 
 def run_once(dev, frames: list, name: str, stages: bool = False):
@@ -164,6 +173,9 @@ def main(argv=None) -> int:
                       "stages_counts": [w["counts"] for _, _, w in runs] if args.stages else None,
                       "gn_trips_used_pct": ([w["gn_trips_used_pct"] for _, _, w in runs]
                                             if args.stages else None),
+                      "gn_launches_per_vo_frame": ([w["gn_launches_per_vo_frame"]
+                                                    for _, _, w in runs]
+                                                   if args.stages else None),
                       "package": os.path.dirname(plslam_tpu_torch.__file__), "card": smi}))
     return 0
 

@@ -34,7 +34,105 @@ from .io import SyntheticScene, circular_trajectory
 from .vo import VisualOdometry, match_and_track
 
 
-HAND_WRITTEN = ("gather_patches_kernel", "fast_score_nms_kernel", "hamming_mma_kernel")
+HAND_WRITTEN = ("gather_patches_kernel", "fast_score_nms_kernel", "hamming_mma_kernel",
+                "gn_pose_solve_kernel")
+
+
+def gn_problems(frames: list, cam: StereoCamera, fcfg: FrontendConfig, tcfg: TrackerConfig,
+                device) -> list:
+    """The arguments of every ``tracker.gauss_newton`` call (two a frame:
+    the solve and its refinement) of an eager VO (``capture=False``) over
+    ``frames``, the first one initializing: a list of (DT0, pts, ls,
+    max_iters), cloned."""
+    from .frontend import tracker
+
+    calls, real = [], tracker.gauss_newton
+
+    def spy(DT0, pts, ls, cam_, cfg, max_iters):
+        clone = lambda tree: type(tree)(*(x.clone() for x in tree))
+        calls.append((DT0.clone(), clone(pts), clone(ls), max_iters))
+        return real(DT0, pts, ls, cam_, cfg, max_iters)
+
+    vo = VisualOdometry(cam, fcfg, tcfg, device=device, capture=False)
+    tracker.gauss_newton = spy
+    try:
+        vo.initialize(*frames[0])
+        for pair in frames[1:]:
+            vo.process(*pair)
+    finally:
+        tracker.gauss_newton = real
+    return calls
+
+
+# The GN kernel may differ from its plain twin on the card by this many
+# times the plain path's own spread over rounding on the same solve, above
+# a floor of a few float32 ulps (DT in m, cov relative to its largest
+# entry, err relative).
+GN_TOL_FACTOR = 2.0
+GN_FLOOR = {"DT": 80 * 2.0 ** -23, "cov": 8 * 2.0 ** -23, "err": 8 * 2.0 ** -23}
+
+
+def gn_differences(a, b) -> dict:
+    """The largest |a - b| of two ``GNResult``s: DT (m), cov (relative to
+    b's largest entry) and err (relative)."""
+    f = lambda x: x.double().cpu()
+    cov_scale = max(f(b.cov).abs().max().item(), 1e-30)
+    err_scale = max(abs(f(b.err).item()), 1e-30)
+    return {"DT": (f(a.DT) - f(b.DT)).abs().max().item(),
+            "cov": (f(a.cov) - f(b.cov)).abs().max().item() / cov_scale,
+            "err": abs(f(a.err).item() - f(b.err).item()) / err_scale}
+
+
+def gn_limits(DT0, pts, ls, cam: StereoCamera, tcfg: TrackerConfig, max_iters: int,
+              plain) -> dict:
+    """The GN kernel's limits on one solve: ``GN_TOL_FACTOR`` times the
+    plain path's own spread over rounding, plus ``GN_FLOOR``.  The spread
+    is the largest difference from the plain path on the CPU of
+    - ``plain``, the plain path on the card: other reduction orders, the
+      same elementwise bits;
+    - the CPU's with the rows reversed and in two seeded orders: the Gram
+      summed in other orders;
+    - the CPU's with every float input of the rows moved one ulp up or
+      down at random, three seeded draws: the rounding of the kernel's own
+      elementwise order (its R p + t is not the plain path's einsum), which
+      the other two never vary.  A residual is a difference of pixel
+      coordinates, so an ulp there is 1e-4 of a residual, and the MAD
+      scale is one such element: err and cov carry it whole.
+    A solve that settles moves by µm; one whose trips never settle turns
+    the order of its sums into mm of pose."""
+    from .frontend import tracker
+
+    def rows(tree, idx):
+        return type(tree)(*(x.cpu()[idx] for x in tree))
+
+    def nudged(tree, g):
+        def one(x):
+            if not x.is_floating_point():
+                return x
+            up = torch.rand(x.shape, generator=g) < 0.5
+            return torch.nextafter(x, torch.where(up, torch.inf, -torch.inf))
+        return type(tree)(*(one(x.cpu()) for x in tree))
+
+    def solve(p, q):
+        return tracker.gauss_newton_plain(DT0, p, q, cam, tcfg, max_iters)
+
+    DT0 = DT0.cpu()
+    n_p, n_l = pts.P.shape[0], ls.sP.shape[0]
+    cpu = solve(rows(pts, slice(None)), rows(ls, slice(None)))
+    others = [plain]
+    for seed in (None, 0, 1):
+        g = None if seed is None else torch.Generator().manual_seed(seed)
+        order = (lambda n: torch.arange(n - 1, -1, -1)) if g is None else \
+            (lambda n: torch.randperm(n, generator=g))
+        others.append(solve(rows(pts, order(n_p)), rows(ls, order(n_l))))
+    for seed in (2, 3, 4):
+        g = torch.Generator().manual_seed(seed)
+        others.append(solve(nudged(pts, g), nudged(ls, g)))
+    spread = {k: 0.0 for k in GN_FLOOR}
+    for other in others:
+        for k, v in gn_differences(other, cpu).items():
+            spread[k] = max(spread[k], v)
+    return {k: GN_TOL_FACTOR * v + GN_FLOOR[k] for k, v in spread.items()}
 
 
 def _device_us(evt) -> float:

@@ -17,8 +17,9 @@ it prints:
   - the work of one ``capture=False`` call, counted by ``WorkCounter``
     (a ``TorchDispatchMode``): FLOPs of mm/bmm/addmm/baddbmm/convolution by
     ``torch.utils.flop_counter``'s formulas, one per output element of
-    every other aten op, and the three hand-written kernels' work by the
-    formulas below (the FAST kernel's on its inputs' data); bytes
+    every other aten op, and the four hand-written kernels' work by the
+    formulas below (the FAST kernel's on its inputs' data, the GN solve's
+    with every trip unrolled); bytes
     *unfused* (every op's inputs and outputs: an upper bound on the
     traffic) and *program* (the program's inputs and outputs once: a lower
     bound).  XLA's ``cost_analysis``, which the JAX script reads, counts
@@ -153,6 +154,32 @@ def hamming_work(d1: torch.Tensor, d2: torch.Tensor) -> tuple[int, float]:
     return B * ((n1 + n2) * 32 + n1 * n2 * 4), 2.0 * B * n1 * n2 * 256
 
 
+# The GN solve's float32 operations (csrc/gauss_newton.cu, which contracts
+# no multiply-add: a product, a sum, a division and a square root count one
+# each), per row and normal-equation build: the residual pass, the MAD
+# passes' |r - med| and the Gram pass (residual, Jacobian, weight, the 28
+# sums); points, Pluecker lines, endpoint lines; and the one thread's
+# Cholesky, solve and exp(-step) @ DT per build.
+GN_ROW_OPS = {"point": 30 + 8 + 130, "plucker": 69 + 8 + 275, "endpoint": 60 + 8 + 234}
+GN_SOLVE_OPS = 400
+
+
+def gn_work(n_points: int, n_lines: int, *, batch: int = 1, max_iters: int,
+            use_points: bool = True, use_lines: bool = True,
+            plucker: bool = True) -> tuple[int, float]:
+    """GN solve of ``batch`` problems (``csrc/gauss_newton.cu``): (bytes:
+    the inputs read once, every used point's P, obs, sigma2 and masks and
+    every line's 21 floats and masks, and the outputs written once;
+    float32 operations of every trip unrolled, ``max_iters`` + the final
+    build, counted at the add rate: a floor, since a division or square
+    root takes several issue slots)."""
+    n_p = n_points if use_points else 0
+    n_l = n_lines if use_lines else 0
+    nbytes = 64 + n_p * (4 * 6 + 2) + n_l * (4 * 22 + 2) + 64 + 144 + 4 + 1 + max_iters
+    row = GN_ROW_OPS["point"] * n_p + GN_ROW_OPS["plucker" if plucker else "endpoint"] * n_l
+    return batch * nbytes, float(batch * (max_iters + 1) * (row + GN_SOLVE_OPS))
+
+
 def _kernel_work(name: str, args: tuple) -> tuple[int, dict]:
     """(bytes, operations by type) of one call of a hand-written kernel's
     wrapper, by the formulas above."""
@@ -206,8 +233,9 @@ class WorkCounter(TorchDispatchMode):
     outputs) and, per hand-written kernel, its calls, bytes and operations.
     The kernels' wrappers are timed by ``cuda_lib.observing``: a call is
     counted by its formula, and the ops it runs inside (the plain twin on
-    the CPU) are not.  The ``plslam::`` operator (the Hamming matrix) is
-    counted through its wrapper."""
+    the CPU) are not.  The ``plslam::`` operators: the Hamming matrix is
+    counted through its wrapper, the GN solve (``plslam::gauss_newton``,
+    whose wrapper the hook never sees) here by ``gn_work``."""
 
     def __init__(self):
         super().__init__()
@@ -218,6 +246,8 @@ class WorkCounter(TorchDispatchMode):
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
+        if func.overloadpacket is torch.ops.plslam.gauss_newton:
+            return self._gauss_newton(func, args, kwargs)
         out = func(*args, **kwargs)
         if self._in_kernel or func.namespace == "plslam" or _moves_nothing(func):
             return out
@@ -231,6 +261,33 @@ class WorkCounter(TorchDispatchMode):
         self.unfused_bytes += sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
         return out
 
+    def _count(self, name: str, nbytes: int, ops: dict) -> None:
+        rec = self.kernels.setdefault(name, {"calls": 0, "bytes": 0, "ops": 0.0})
+        rec["calls"] += 1
+        rec["bytes"] += nbytes
+        rec["ops"] += sum(ops.values())
+        self.unfused_bytes += nbytes
+        for k, n in ops.items():
+            self.ops[k] = self.ops.get(k, 0.0) + n
+
+    def _gauss_newton(self, func, args: tuple, kwargs: dict):
+        """The GN operator, whose wrapper the ``observing`` hook never
+        sees: run it, count its call by ``gn_work``."""
+        self._in_kernel += 1
+        try:
+            out = func(*args, **kwargs)
+        finally:
+            self._in_kernel -= 1
+        a = func._schema.arguments
+        kw = dict(zip((x.name for x in a), args), **kwargs)
+        DT0, P, sP = kw["DT0"], kw["P"], kw["sP"]
+        nbytes, ops = gn_work(P.shape[-2], sP.shape[-2],
+                              batch=DT0.shape[0] if DT0.dim() == 3 else 1,
+                              max_iters=kw["max_iters"], use_points=kw["use_points"],
+                              use_lines=kw["use_lines"], plucker=kw["plucker"])
+        self._count("gauss_newton_cuda", nbytes, {"f32_add": ops})
+        return out
+
     def kernel(self, wrapper, args: tuple, kwargs: dict):
         """The ``cuda_lib.observing`` hook: run the wrapper, count its call."""
         self._in_kernel += 1
@@ -239,13 +296,7 @@ class WorkCounter(TorchDispatchMode):
             nbytes, ops = _kernel_work(wrapper.__name__, args)
         finally:
             self._in_kernel -= 1
-        rec = self.kernels.setdefault(wrapper.__name__, {"calls": 0, "bytes": 0, "ops": 0.0})
-        rec["calls"] += 1
-        rec["bytes"] += nbytes
-        rec["ops"] += sum(ops.values())
-        self.unfused_bytes += nbytes
-        for k, n in ops.items():
-            self.ops[k] = self.ops.get(k, 0.0) + n
+        self._count(wrapper.__name__, nbytes, ops)
         return out
 
 

@@ -6,7 +6,8 @@ and what the program counts with them:
   before the profiler; nothing when the profiler is off;
 - ``timed`` counts a call that raises; ``counters()`` is per thread;
   ``per_call_ms`` and ``added`` read the difference of two snapshots, and
-  ``profile_slam.window`` prints both with the GN trips used;
+  ``profile_slam.window`` prints both with the GN trips used and the GN
+  launches per tracked frame;
 - a collector pass under the profiler is a ``host.gc`` range;
 - ``graphs.stats()`` with a released ``Program`` still alive, and
   ``graphs.captures()`` without the allocator's snapshot;
@@ -139,14 +140,15 @@ def test_profile_slam_window_prints_the_blocks_the_counts_and_the_trips_used():
                       "vo.gn_trips_used": 10, "vo.gn_trips_unrolled": 30}}
     after = {"trk": {"pipeline.process.ns": 8_000_000, "pipeline.process.calls": 4,
                      "vo.gn_trips_used": 40, "vo.gn_trips_unrolled": 90,
-                     "pipeline.keyframes": 2},
+                     "pipeline.keyframes": 2, "kernels.gn_launches": 8},
              "map": {"mapper.keyframe.ns": 6_000_000, "mapper.keyframe.calls": 2}}
     assert window(before, after) == {
         "ms_calls": {"map mapper.keyframe": [3.0, 2], "trk pipeline.process": [2.0, 4]},
-        "counts": {"trk pipeline.keyframes": 2, "trk vo.gn_trips_unrolled": 60,
-                   "trk vo.gn_trips_used": 30},
-        "gn_trips_used_pct": 50.0}
+        "counts": {"trk kernels.gn_launches": 8, "trk pipeline.keyframes": 2,
+                   "trk vo.gn_trips_unrolled": 60, "trk vo.gn_trips_used": 30},
+        "gn_trips_used_pct": 50.0, "gn_launches_per_vo_frame": {"trk": 2.0}}
     assert window(after, after)["gn_trips_used_pct"] is None
+    assert window(after, after)["gn_launches_per_vo_frame"] == {}
 
 
 def test_a_collector_pass_is_a_host_gc_range():
